@@ -2,9 +2,10 @@
 
 Counterpart of ``jtk_tpu/ops/phmm.py``: conditional pair-HMM over
 (template = chunk, query = read), banded around the guide diagonal, in
-probability space with per-row rescaling.  One engine serves every caller:
-the table kernels of :mod:`jtk_tpu_torch.ops.phmm_tables` (hand-written CUDA
-on the card, plain PyTorch on the CPU).
+probability space with per-row rescaling.  Tables come from the table
+kernels of :mod:`jtk_tpu_torch.ops.phmm_tables`; log-likelihoods alone from
+the forward kernel of :mod:`jtk_tpu_torch.ops.phmm_lk` (hand-written CUDA on
+the card, plain PyTorch on the CPU).
 
 Parameter layout mirrors the reference: transitions 3x3 ``[from, to]``,
 ``mat_emit[ref, query]`` (4, 4), ``ins_emit[prev_query_or_start, query]``
@@ -20,6 +21,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .phmm_lk import lk_inputs, phmm_lk, tables8
 from .phmm_tables import EPS, prep_tables_inputs, tables_batch
 
 
@@ -105,27 +107,29 @@ def likelihood(q, r, offsets, q_len, t_len, params: PHMMParams, W: int):
 
 def likelihood_pairs(qs, rs, offs, q_lens, t_lens, params, W: int,
                      max_batch: int = 256):
-    """Log-likelihoods of independent (query, template) pairs: the forward
-    tables kernel, whose run yields lk.  Returns numpy (B,)."""
+    """Log-likelihoods of independent (query, template) pairs through the
+    forward log-likelihood kernel (K1l, :mod:`.phmm_lk`), which writes no
+    tables.  Returns numpy (B,)."""
+    from ..runtime import device
+    dev = device()
     qs = np.asarray(qs)
+    rs, offs = np.asarray(rs), np.asarray(offs)
+    q_lens = np.asarray(q_lens)
+    t_lens = np.broadcast_to(np.asarray(t_lens), (len(qs),))
+    tabs = tables8(params, dev)
     out = np.zeros(len(qs), np.float32)
     for s in range(0, len(qs), max_batch):
         sl = slice(s, s + max_batch)
-        prep = prep_tables_inputs(qs[sl], np.asarray(rs)[sl],
-                                  np.asarray(offs)[sl],
-                                  np.asarray(q_lens)[sl],
-                                  np.asarray(t_lens)[sl], params, W)
-        lk = tables_batch(prep, W, backward=False)[0]
-        out[sl] = lk.cpu().numpy()
+        args = lk_inputs(qs[sl], rs if rs.ndim == 1 else rs[sl], offs[sl],
+                         q_lens[sl], t_lens[sl], W, device=dev)
+        out[sl] = phmm_lk(*args, *tabs).cpu().numpy()
     return out
 
 
 def likelihood_pileup(qs, template, offs, q_lens, t_len, params, W: int):
     """Log-likelihoods of many queries against one template."""
-    qs = np.asarray(qs)
-    tpl = np.broadcast_to(np.asarray(template), (len(qs), len(template)))
-    return likelihood_pairs(qs, tpl, offs, q_lens,
-                            np.full(len(qs), int(t_len)), params, W)
+    return likelihood_pairs(qs, np.asarray(template), offs, q_lens, t_len,
+                            params, W)
 
 
 def _cdf_rows(m) -> list:

@@ -103,3 +103,61 @@ def test_wrapper_raises_on_bad_input():
     args[1] = args[1].to(torch.int64)
     with pytest.raises(ValueError):
         k3.edit_dp(*args)
+
+
+def _pileup_cuda(rng, B=16, tlen=600, W=128):
+    from jtk_tpu_torch.io import sim
+    from jtk_tpu_torch.ops.banded_align import linear_offsets
+    from jtk_tpu_torch.ops.polish import effective_band
+    tpl = sim.random_genome(rng, tlen)
+    reads = [sim.noisy_read(rng, tpl, 0.06) for _ in range(B)]
+    q_lens = np.array([len(r) for r in reads], np.int64)
+    W = effective_band(W, q_lens, tlen)
+    Q = ((int(q_lens.max()) + 63) // 64) * 64
+    qs = np.full((B, Q), 4, np.int8)
+    for b, r in enumerate(reads):
+        qs[b, :len(r)] = r
+    offs = np.stack([linear_offsets(int(n), tlen, Q, W) for n in q_lens])
+    return tpl, qs, offs, q_lens, W
+
+
+def test_lk_kernel_matches_plain():
+    require_cuda()
+    from jtk_tpu_torch.ops import phmm_lk as k1l
+    from jtk_tpu_torch.ops.phmm import PHMMParams
+    tpl, qs, offs, q_lens, W = _pileup_cuda(np.random.default_rng(5))
+    args = k1l.lk_inputs(qs, tpl, offs, q_lens, len(tpl), W, device="cuda")
+    tabs = k1l.tables8(PHMMParams.default("cuda"), "cuda")
+    n0 = k1l.LAUNCHES.count
+    got = k1l.phmm_lk(*args, *tabs)
+    assert k1l.LAUNCHES.count == n0 + 1
+    want = k1l.phmm_lk_plain(*args, *tabs)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-2)
+
+
+def test_counts_kernel_matches_plain_and_gradient_matches_autograd():
+    require_cuda()
+    from jtk_tpu_torch.ops import phmm_grad as pg
+    from jtk_tpu_torch.ops import phmm_lk as k1l
+    from jtk_tpu_torch.ops.phmm import PHMMParams
+    from jtk_tpu_torch.parallel import params_to_theta, theta_to_params
+    tpl, qs, offs, q_lens, W = _pileup_cuda(np.random.default_rng(6))
+    batch = pg.PairBatch(qs, tpl, offs, q_lens, len(tpl), W, device="cuda")
+    params = PHMMParams.default("cuda")
+    args = pg.counts_args(pg.counts_prep(params, batch), W)
+    n0 = pg.LAUNCHES.count
+    got = pg.phmm_counts(*args)
+    assert pg.LAUNCHES.count == n0 + 1
+    torch.testing.assert_close(got, pg.phmm_counts_plain(*args), rtol=1e-3,
+                               atol=1e-4)
+    grads = []
+    for kernel in (True, False):
+        th = {k: v.clone().requires_grad_(True)
+              for k, v in params_to_theta(params).items()}
+        p = theta_to_params(th)
+        lk = pg.pair_likelihood(p, batch) if kernel else \
+            k1l.phmm_lk_plain(*batch.lk_args, *k1l.tables8(p, "cuda"))
+        (-lk.sum()).backward()
+        grads.append([th[k].grad / float(q_lens.sum()) for k in th])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4)

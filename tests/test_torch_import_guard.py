@@ -15,6 +15,7 @@ BANNED = ("jax", "jaxlib", "jtk_tpu")
 
 
 def _port_files():
+    yield os.path.join(ROOT, "chip_smoke.py")
     for dirpath, _dirs, files in os.walk(PORT):
         if "_build" in dirpath:
             continue
@@ -63,7 +64,7 @@ print(len(ported), bad)
                          text=True, timeout=300, env=cpu_subprocess_env())
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 30
+    assert int(n) >= 40
     assert bad == "[]", bad
 
 
