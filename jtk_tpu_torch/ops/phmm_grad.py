@@ -35,8 +35,7 @@ N_COUNTS = 9 + 16 + 20
 def phmm_counts_plain(fM, fI, fD, bM, bI, bD, fcum, bcum, rcs, qs, shifts,
                       qlen, lk, trans, me, ie):
     """Plain PyTorch version of the counts kernel: (B, 45) f32."""
-    B, Q1, W = fM.shape
-    Q = Q1 - 1
+    B, Q1 = fM.shape[:2]
     dev = fM.device
     rows = torch.arange(Q1, device=dev)
     ql = qlen.to(torch.int64)[:, None]

@@ -80,7 +80,7 @@ def lk_inputs(qs, templates, offsets, q_lens, t_lens, W: int, device=None):
 
 def phmm_lk_plain(qs, shifts, inc, rc0, j0, qlen, tlen, trans, me, ie):
     """Plain PyTorch version of the K1l kernel: (B,) f32 log-likelihoods."""
-    B, W = rc0.shape
+    B = rc0.shape[0]
     dev = rc0.device
     tmm, tmi, tmd = trans[0, 0], trans[0, 1], trans[0, 2]
     tim, tii, tid = trans[1, 0], trans[1, 1], trans[1, 2]
