@@ -7,7 +7,9 @@
 2. builds the CUDA kernels of ``jtk_tpu_torch/csrc`` (one nvcc per source,
    started together);
 3. holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes, and times both with CUDA events: K3 bit-exact
+   main path's shapes (the K1 tables at polish's B 192 / W 128 and W 512
+   and model tuning's B 40 / W 128 and W 256), and times both with CUDA
+   events, each beside its bound: K3 bit-exact
    (stream, last row, decoded CIGARs); the K1 tables within rtol 2e-3 /
    atol 1e-5 (tables) and rtol 1e-4 / atol 2e-2 (cumulative log scales);
    K1l's lk within rtol 1e-4 / atol 2e-2 of its plain version and of K1f's
@@ -22,14 +24,20 @@
    port's CLI on a fresh 60 kb / 60x region (region_size 60k, chunk 2000,
    margin 500, seed 42), then a resume rerun from its checkpoints;
 6. counts every kernel's launches on each path (set to 0 just before it,
-   read just after), checks the truth bars of tests/test_e2e.py on both
+   read just after; path (a) by stage, path (b) by launch shape (B, Q, W),
+   the five most frequent of each kernel), checks the truth bars of
+   tests/test_e2e.py on both
    (mean ARI > 0.6, mean contig error < 0.05, total length > 2/3 of the
    region for (a) and of both haplotypes for (b)), the five checkpoints and
    the resumed GFA;
 7. prints the kernels line, the card line, then {"ok": true, "device": ...}
    as the last line.  Any failure exits non-zero without the last line.
 
-``--kernels-only`` stops after step 3 (a quick build-and-check run).
+``--kernels-only`` stops after step 3 (a quick build-and-check run).  The
+script runs the ``jtk_tpu_torch`` beside it, so a copy of it placed in an
+unpacked ``git archive`` of an earlier commit checks and times that
+commit's kernels at the same shapes: a kernel redesign is timed against
+its parent in one call.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import argparse
 import json
 import logging
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -174,9 +183,15 @@ def check_k3(rng, dev):
                 library_ms=None)
 
 
+TABLE_SHAPES = (("polish", 192, 128), ("polish_W512", 192, 512),
+                ("model_tune", 40, 128), ("model_tune_W256", 40, 256))
+
+
 def check_tables(rng, dev):
-    """K1 forward/backward at B = 192 pairs, Q = 2048 read rows against
-    ~2 kb templates, W = 128 (ONT band 0.03 * 2000 rounded up) and 512."""
+    """K1 forward/backward at Q = 2048 read rows against ~2 kb templates:
+    B = 192 pairs at W = 128 (ONT band 0.03 * 2000 rounded up) and 512
+    (polish), and model tuning's B = 40 at W = 128 and 256 (a pileup whose
+    shortest read widens the band, ``effective_band``)."""
     import numpy as np
     import torch
 
@@ -185,13 +200,13 @@ def check_tables(rng, dev):
     from jtk_tpu_torch.ops.banded_align import linear_offsets
     from jtk_tpu_torch.ops.phmm import PHMMParams
 
-    B, Q = 192, 2048
+    Q = 2048
     params_f = PHMMParams.default(dev)
     # reverse-strand set: a perturbed copy, so the strand select matters
     params_r = PHMMParams(params_f.trans * 0.98 + 0.0066,
                           params_f.mat_emit, params_f.ins_emit)
     out = {"fwd": [], "bwd": []}
-    for W in (128, 512):
+    for label, B, W in TABLE_SHAPES:
         tpl = np.full((B, Q + 64), 4, np.int8)
         qs = np.full((B, Q), 4, np.int8)
         q_lens = np.zeros(B, np.int64)
@@ -219,12 +234,12 @@ def check_tables(rng, dev):
             err = 0.0
             for g, w in zip(got[:3], want[:3]):
                 if not torch.allclose(g, w, rtol=2e-3, atol=1e-5):
-                    raise AssertionError(f"K1 {kind} W={W}: tables differ "
+                    raise AssertionError(f"K1 {kind} {label}: tables differ "
                                          f"(max {float((g - w).abs().max())})")
                 err = max(err, float((g - w).abs().max()))
             cg, cw = torch.cumsum(got[3], 1), torch.cumsum(want[3], 1)
             if not torch.allclose(cg, cw, rtol=1e-4, atol=2e-2):
-                raise AssertionError(f"K1 {kind} W={W}: log scales differ "
+                raise AssertionError(f"K1 {kind} {label}: log scales differ "
                                      f"(max {float((cg - cw).abs().max())})")
             err = max(err, float((cg - cw).abs().max()))
             ms = cuda_time(lambda: kern(*args), reps=5)
@@ -233,10 +248,11 @@ def check_tables(rng, dev):
             flops = 40.0 * B * Q * W
             t_bytes = moved / HBM_BYTES_PER_S * 1e3
             t_ops = flops / FP32_OPS_PER_S * 1e3
-            log(f"K1 {kind}_tables B={B} Q={Q} W={W}: max abs err {err:.3g}, "
-                f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
-                f"{max(t_bytes, t_ops):.3f} ms")
-            out[kind].append(dict(W=W, err=err, ms=ms, plain_ms=plain_ms,
+            log(f"K1 {kind}_tables {label} B={B} Q={Q} W={W}: max abs err "
+                f"{err:.3g}, kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+                f"bound {max(t_bytes, t_ops):.3f} ms")
+            out[kind].append(dict(label=label, B=B, Q=Q, W=W, err=err, ms=ms,
+                                  plain_ms=plain_ms,
                                   bound_ms=max(t_bytes, t_ops),
                                   bound_by="bytes" if t_bytes >= t_ops
                                   else "operations"))
@@ -244,17 +260,19 @@ def check_tables(rng, dev):
             torch.cuda.empty_cache()
     rows = []
     for kind, line in (("fwd", 197), ("bwd", 337)):
-        r128 = out[kind][0]
-        rows.append(dict(
+        first, *others = out[kind]
+        row = dict(
             name=f"{kind}_tables (K1{kind[0]})", route="cuda",
             source="jtk_tpu_torch/csrc/phmm_tables.cu",
             replaces=f"jtk_tpu/ops/pallas_phmm.py:{line}",
-            max_abs_err=max(o["err"] for o in out[kind]), ms=r128["ms"],
-            plain_ms=r128["plain_ms"], bound_ms=r128["bound_ms"],
-            bound_by=r128["bound_by"], library_ms=None,
-            at_W512=dict(ms=out[kind][1]["ms"],
-                         plain_ms=out[kind][1]["plain_ms"],
-                         bound_ms=out[kind][1]["bound_ms"])))
+            max_abs_err=max(o["err"] for o in out[kind]), ms=first["ms"],
+            plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+            bound_by=first["bound_by"], library_ms=None,
+            shape=dict(B=first["B"], Q=Q, W=first["W"]))
+        for o in others:
+            row[f"at_{o['label']}"] = {k: o[k] for k in (
+                "B", "Q", "W", "ms", "plain_ms", "bound_ms")}
+        rows.append(row)
     return rows
 
 
@@ -426,7 +444,32 @@ def check_counts(rng, dev):
 # ---------------------------------------------------------------------------
 
 
-def run_slice(rng):
+def launch_counters():
+    """The launch counters of the five kernel wrappers, in the order of the
+    kernels line."""
+    from jtk_tpu_torch.ops import (edit_dp, phmm_grad, phmm_lk,
+                                   phmm_tables)
+    return [edit_dp.LAUNCHES, phmm_tables.FWD_LAUNCHES,
+            phmm_tables.BWD_LAUNCHES, phmm_lk.LAUNCHES, phmm_grad.LAUNCHES]
+
+
+class _LaunchCounts(logging.Filter):
+    """Stamps each log record with the launch counts so far, so that two
+    runs' logs show where their launches part."""
+
+    def __init__(self, counters):
+        super().__init__()
+        self.counters = counters
+
+    def filter(self, record):
+        record.launches = "/".join(str(c.count) for c in self.counters)
+        return True
+
+
+def run_slice(rng, counters):
+    """Path (a).  ``counters`` (see :func:`launch_counters`) are read at
+    each stage's end and on every line of ``stages.log``; the polish
+    rounds' DEBUG lines go there too."""
     import numpy as np
 
     from jtk_tpu_torch import seq as seqmod
@@ -447,27 +490,37 @@ def run_slice(rng):
                                mean_len=15_000, error=0.05, clip_ends=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     # the stages' own timing lines (polish, cigar refresh, variant stats,
-    # mcmc, consensus rounds) go to a log beside the outputs
+    # mcmc, consensus rounds) go to a log beside the outputs, each with the
+    # launch counts K3/K1f/K1b/K1l/counts so far
     handler = logging.FileHandler(os.path.join(OUT_DIR, "stages.log"), "w")
-    handler.setFormatter(logging.Formatter("%(asctime)s %(name)s: %(message)s"))
+    handler.addFilter(_LaunchCounts(counters))
+    handler.setFormatter(logging.Formatter(
+        "%(asctime)s [%(launches)s] %(name)s: %(message)s"))
     root = logging.getLogger()
     root.addHandler(handler)
     root.setLevel(logging.INFO)
+    polish_log = logging.getLogger("jtk_tpu_torch.ops.polish")
+    polish_log.setLevel(logging.DEBUG)
     fa = os.path.join(OUT_DIR, "reads.fa")
     with open(fa, "w") as f:
         for i, r in enumerate(reads):
             f.write(f">sim_{i}\n{seqmod.decode(r['codes']).decode()}\n")
     chunk_len, margin = 2000, 500
     take_num = int(3 * REGION / chunk_len / 2)
-    stage_s = {}
+    stage_s, stage_launches = {}, {}
     t = time.time()
+    seen = [c.count for c in counters]
 
     def mark(name):
-        nonlocal t
+        nonlocal t, seen
         now = time.time()
         stage_s[name] = now - t
-        log(f"stage {name}: {stage_s[name]:.1f} s")
-        t = now
+        counts = [c.count for c in counters]
+        stage_launches[name] = [a - b for a, b in zip(counts, seen)]
+        log(f"stage {name}: {stage_s[name]:.1f} s, launches "
+            + ", ".join(f"{c.name}={n}" for c, n in
+                        zip(counters, stage_launches[name])))
+        t, seen = now, counts
 
     ds = entry(fa, "ONT")
     mark("entry")
@@ -500,6 +553,7 @@ def run_slice(rng):
     mark("evaluation")
     root.removeHandler(handler)
     handler.close()
+    polish_log.setLevel(logging.NOTSET)
     with open(os.path.join(OUT_DIR, "stages.log")) as f:
         for line in f:
             if "local_clustering:" in line or "select_chunks:" in line:
@@ -508,7 +562,8 @@ def run_slice(rng):
                 phased_chunks=len(aris),
                 mean_ari=float(np.mean(aris)) if aris else float("nan"),
                 contigs=len(m["contigs"]), total_len=int(m["total_len"]),
-                mean_error=float(m["mean_error"]), stage_s=stage_s)
+                mean_error=float(m["mean_error"]), stage_s=stage_s,
+                stage_launches=stage_launches)
 
 
 def run_pipeline_path(rng):
@@ -645,8 +700,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import numpy as np
 
-    from jtk_tpu_torch.ops import (cuda_build, edit_dp, phmm_grad, phmm_lk,
-                                   phmm_tables)
+    from jtk_tpu_torch.ops import cuda_build
     from jtk_tpu_torch.runtime import set_device
 
     # selecting cuda turns TF32 off: full fp32 in the one-hot segment sums
@@ -656,15 +710,28 @@ def main() -> int:
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"python {sys.version.split()[0]}")
+        f"python {sys.version.split()[0]}; jtk_tpu_torch from {HERE}")
 
     t0 = time.time()
     cuda_build.build(["edit_dp", "phmm_tables", "phmm_lk", "phmm_counts"])
     log(f"build: {time.time() - t0:.1f} s")
+    # the table kernels keep a thread's band lanes in registers at every
+    # geometry (ops/phmm_tables.py::tables_geometry): a spill breaks that
+    spills = []
     for name, text in cuda_build.BUILD_LOG.items():
+        fn = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {name}: {line.strip()}")
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:   # _Z17fwd_tables_kernelILi4ELi1EEv... -> fwd_tables_kernel<4,1>
+                fn = re.sub(r"^_Z\d+(\w+?)ILi(\d+)ELi(\d+)E.*$", r"\1<\2,\3>",
+                            m.group(1))
+            elif "registers" in line or "spill" in line:
+                log(f"ptxas {name} {fn}: {line.strip()}")
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line)
+                if name == "phmm_tables" and m and (int(m.group(1))
+                                                    or int(m.group(2))):
+                    spills.append(f"{fn} spills ({line.strip()})")
 
     rng = np.random.default_rng(SEED)
     rows = [check_k3(rng, dev)]
@@ -678,16 +745,17 @@ def main() -> int:
     log(f"kernel checks done at {time.time() - t_all:.1f} s")
     if opts.kernels_only:
         print(json.dumps({"kernels": rows}))
+        if spills:
+            print("chip_smoke FAILED: " + "; ".join(spills), file=sys.stderr)
+            return 1
         return 0
 
-    counters = [edit_dp.LAUNCHES, phmm_tables.FWD_LAUNCHES,
-                phmm_tables.BWD_LAUNCHES, phmm_lk.LAUNCHES,
-                phmm_grad.LAUNCHES]
+    counters = launch_counters()
     # path (a): the stage-by-stage slice
     for c in counters:
         c.reset()
     torch.cuda.reset_peak_memory_stats()
-    res_a = run_slice(np.random.default_rng(SEED + 1))
+    res_a = run_slice(np.random.default_rng(SEED + 1), counters)
     launches_a = [c.count for c in counters]
     log("path (a) slice: " + json.dumps(res_a))
     log(f"path (a) peak device memory: "
@@ -704,6 +772,14 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for phase, sec in res_b["phases_s"].items():
         log(f"phase {phase}: {sec:.1f} s")
+    # where each kernel's launches on the main path go, by (B, Q, W): the
+    # launches x time of a kernel at the shapes the pipeline uses
+    res_b["launch_shapes_top5"] = {}
+    for c in counters:
+        top = c.shapes.most_common(5)
+        log(f"path (b) {c.name} launches by shape (B, Q, W), top 5 of "
+            f"{len(c.shapes)}: " + ", ".join(f"{s}={n}" for s, n in top))
+        res_b["launch_shapes_top5"][c.name] = [[list(s), n] for s, n in top]
     for strand, h in res_b["hmm"].items():
         log(f"fitted {strand} HMM: trans {h['trans']}, mat_emit diagonal "
             f"{h['mat_emit_diag']}")
@@ -718,6 +794,7 @@ def main() -> int:
     # the slice has no model tuning, so no gradient
     failures += [f"{r['name']} never launched on the slice" for r in rows[:4]
                  if r["launches_slice"] == 0]
+    failures += spills
     failures += truth_failures("path (a)", res_a, 2 * REGION / 3)
     failures += truth_failures("path (b)", res_b, 2 * 2 * REGION / 3)
     if res_b["missing"]:

@@ -11,9 +11,9 @@
 // emits with probability 0, ins row 4 is the start row.
 //
 // Design: one block per pair, one thread per band lane (blockDim = W
-// rounded up to a warp; W <= 1024), as in phmm_tables.cu.  Each query row
-// is one step: neighbour lanes through shared memory, the Del chain a block
-// scan of a linear recurrence (block_scan.cuh), the row scale a block sum.
+// rounded up to a warp; W <= 1024).  Each query row is one step:
+// neighbour lanes through shared memory, the Del chain a block scan of a
+// linear recurrence (block_scan.cuh), the row scale a block sum.
 // Nothing but lk (B,) is written.  The loop stops at the pair's q_len.
 //
 // Bound on the H100: the per-row inputs (qs, shifts, inc: 12 bytes a row)

@@ -1,28 +1,67 @@
 // K1: banded 3-state pair-HMM forward and backward tables.
 //
-// Replace the Pallas kernels jtk_tpu/ops/pallas_phmm.py::_fwd_tables_kernel
-// (launched by _pallas_fwd_tables) and ::_bwd_tables_kernel (launched by
-// _pallas_bwd_tables).  Same math, probability space with per-row
-// rescaling: the forward pass rescales each row by its SUM, the backward
-// pass by its MAX (the closed-form modification table joins the two
-// cumulative scales, so they must not be mixed).
+// Replace the Pallas kernels jtk_tpu/ops/pallas_phmm.py:197
+// _fwd_tables_kernel and :337 _bwd_tables_kernel.  Same math, probability
+// space with per-row rescaling: the forward pass rescales each row by its
+// SUM, the backward pass by its MAX (the closed-form modification table
+// joins the two cumulative scales, so they must not be mixed).
 //
-// Design: one block per pair, one thread per band lane (blockDim = W
-// rounded up to a warp; W <= 1024).  Each query row is one step: the five
-// precomputed emission streams give the row's emissions, the band shift
-// reads neighbour lanes through shared memory, the in-row Del chain
-// D[k] = c[k] + tdd * D[k-1] is a block scan of a linear recurrence, and
-// the row scale is a block reduction.  Rows past q_len (forward) or at or
-// past q_len (backward) are frozen.  A per-pair strand flag selects the
-// first or second transition table.
+// Bound on the H100: bytes, the three (Q, W) f32 tables written once per
+// pair and pass (~3 MB at Q = 2048, W = 128); ~40 flops per cell.  But a
+// pair's rows form a chain of Q dependent steps, and the main path has
+// only 40 (model tuning) to 192 (polish) pairs, one warp or a few each, so
+// an SM scheduler runs one warp: the time is Q times the cycles one row
+// takes that warp, which are about the instructions it issues (in order,
+// with little to hide their latency).  The design keeps a row short.
 //
-// Bound on the H100: the table writes, 3 * Q * W * 4 bytes per pair and
-// pass (~3 MB at Q = 2048, W = 128); the arithmetic is ~40 flops per cell.
-// Each pair's rows are sequential, so the kernel needs many pairs in flight
-// to hide the per-row barrier latency.
+// Design (geometry from ops/phmm_tables.py::tables_geometry):
+// - L <= 4 consecutive band lanes a thread, in registers, and as many
+//   warps per pair (WPP, 1 to 16) as the band needs; 4 warps a block (4
+//   pairs of one warp, 2 of two, or one wider pair).  No __syncthreads.
+//   Lanes >= W are masked: state 0, and a column no range test accepts.
+// - Neighbour reads stay in the thread except at its two edge lanes (one
+//   shuffle each).  The band shift is the same on every lane of a row, so a
+//   row needs only one direction.
+// - The in-row Del chain (forward D[k] = c[k] + tdd D[k-1], backward
+//   D[k] = c[k] + tdd D[k+1]) runs serially over the thread's L lanes, a
+//   5-step warp scan carries it between threads (tdd is per pair, so only
+//   y is shuffled, with multipliers tdd^(L 2^s)), and a second serial pass
+//   applies the carry.
+// - The row scale (forward: sum, backward: max; an in-thread reduction and
+//   a 5-step butterfly) is off the row-to-row chain: each row is computed
+//   from the previous row before its scale, which is applied at the end of
+//   the row (the rows are linear in the previous row).
+// - With WPP > 1 the pair's warps exchange scan carries, scale partials and
+//   edge lanes through shared memory under a named barrier over their own
+//   threads: two barriers a row.
+// - The row streams (shift, entering char, emissions) are copied with
+//   cp.async into shared memory two 6-row tiles ahead and taken into
+//   registers a tile at a time; a row broadcasts its shift, char and
+//   insertion emission with __shfl_sync, and each lane reads the match
+//   emission of its own ref code with one shuffle.  No global load, and no
+//   register scoreboard of one, sits between one row and the next.
+// - The loop stops at the pair's q_len; the frozen rows past it (forward)
+//   or at and past it (backward) are written after / before the loop with
+//   plain stores and a log scale of 0.
+// - Table rows are written as 16-byte stores of a thread's lanes.
+#include <cstddef>
 #include <cstdint>
 
-#include "block_scan.cuh"
+#include "warp_band.cuh"
+
+// Per warp of a block: [0] scan total, [2] scale partial, [3..6] first
+// lane's values, [7..9] last lane's values (the char code as float bits).
+constexpr int SM_SLOTS = 12;
+constexpr int GEOMETRY_ERROR = -2;
+
+// Warps of a block: 4 pairs of one warp, 2 of two, or one wider pair.
+__host__ __device__ constexpr int block_warps(int wpp) {
+  return wpp >= 4 ? wpp : 4;
+}
+
+// A column no band lane reaches: masked lanes (k >= W) start there, so
+// every range test of theirs fails and their state stays 0.
+constexpr int NO_COLUMN = 1 << 30;
 
 struct Trans {
   float mm, mi, md, im, ii, id, dm, di, dd;
@@ -37,224 +76,518 @@ __device__ __forceinline__ Trans load_trans(const float* t) {
   return r;
 }
 
-__device__ __forceinline__ float pick_emis(int rc, float e0, float e1,
-                                           float e2, float e3) {
-  return rc == 0 ? e0 : rc == 1 ? e1 : rc == 2 ? e2 : rc == 3 ? e3 : 0.f;
-}
+// The three output tables at one thread's first lane of one row.
+struct TablePtrs {
+  float *M, *I, *D;
 
-__global__ void fwd_tables_kernel(const float* __restrict__ emis,
-                                  const int32_t* __restrict__ shifts,
-                                  const int32_t* __restrict__ inc,
-                                  const int32_t* __restrict__ rc0,
-                                  const int32_t* __restrict__ j0,
-                                  const float* __restrict__ m0,
-                                  const float* __restrict__ i0,
-                                  const float* __restrict__ d0,
-                                  const int32_t* __restrict__ qlen,
-                                  const int32_t* __restrict__ tlen,
-                                  const int32_t* __restrict__ strand,
-                                  const float* __restrict__ trans,
-                                  const float* __restrict__ trans2,
-                                  float* __restrict__ outM,
-                                  float* __restrict__ outI,
-                                  float* __restrict__ outD,
-                                  float* __restrict__ outLs,
-                                  int B, int Q, int W) {
-  extern __shared__ float fsm[];
-  float* mbuf = fsm;                       // blockDim.x each
-  float* ibuf = mbuf + blockDim.x;
-  float* dbuf = ibuf + blockDim.x;
-  int* rcbuf = (int*)(dbuf + blockDim.x);
-  float* ys = (float*)(rcbuf + blockDim.x);  // 32
-  float* as = ys + 32;                       // 32
+  // A thread's L lanes of each table: 16-byte stores when ``vec`` (row
+  // stride and first lane multiples of 4 floats), else lane by lane; only
+  // the first ``nv`` = W - k0 lanes are band lanes.
+  template <int L>
+  __device__ __forceinline__ void store(int nv, bool vec, const float (&m)[L],
+                                        const float (&i)[L],
+                                        const float (&d)[L]) const {
+    if constexpr (L % 4 == 0) {
+      if (vec) {
+#pragma unroll
+        for (int g = 0; g < L; g += 4)
+          if (g < nv) {
+            *reinterpret_cast<float4*>(M + g) =
+                make_float4(m[g], m[g + 1], m[g + 2], m[g + 3]);
+            *reinterpret_cast<float4*>(I + g) =
+                make_float4(i[g], i[g + 1], i[g + 2], i[g + 3]);
+            *reinterpret_cast<float4*>(D + g) =
+                make_float4(d[g], d[g + 1], d[g + 2], d[g + 3]);
+          }
+        return;
+      }
+    }
+#pragma unroll
+    for (int l = 0; l < L; ++l)
+      if (l < nv) { M[l] = m[l]; I[l] = i[l]; D[l] = d[l]; }
+  }
+  __device__ __forceinline__ void step(ptrdiff_t n) { M += n; I += n; D += n; }
+};
 
-  const int b = blockIdx.x;
-  const int k = threadIdx.x;
-  const bool lane = k < W;
-  const Trans t = load_trans(strand[b] > 0 ? trans2 : trans);
-  const int ql = qlen[b];
+template <int L, int WPP>
+__global__ void __launch_bounds__(32 * block_warps(WPP))
+fwd_tables_kernel(const float* __restrict__ emis,
+                  const int32_t* __restrict__ shifts,
+                  const int32_t* __restrict__ inc,
+                  const int32_t* __restrict__ rc0,
+                  const int32_t* __restrict__ j0,
+                  const float* __restrict__ m0, const float* __restrict__ i0,
+                  const float* __restrict__ d0,
+                  const int32_t* __restrict__ qlen,
+                  const int32_t* __restrict__ tlen,
+                  const int32_t* __restrict__ strand,
+                  const float* __restrict__ trans,
+                  const float* __restrict__ trans2, float* __restrict__ outM,
+                  float* __restrict__ outI, float* __restrict__ outD,
+                  float* __restrict__ outLs, int B, int Q, int W, int ppb) {
+  __shared__ float sm[block_warps(WPP)][SM_SLOTS];
+  __shared__ float streams[block_warps(WPP)][wb::STREAM_WORDS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wip = warp % WPP;              // warp within the pair
+  const int w0 = warp - wip;               // the pair's first warp
+  const int b = blockIdx.x * ppb + warp / WPP;
+  if (b >= B) return;                      // all of the pair's warps
+  const int bar = 1 + warp / WPP;
+  const int k0 = (wip * 32 + lane) * L;
+  const int nv = W - k0;                   // band lanes of this thread
+  const int wl = W - 1 - k0;               // local index of lane W - 1
+  const bool vec = (W & 3) == 0;
+  const Trans tr = load_trans(strand[b] > 0 ? trans2 : trans);
+  const float dd = tr.dd;
+  float a[5], am[5];
+  wb::scan_powers(dd, L, a);
+  wb::up_multipliers(a, lane, am);
+  const float powT = wb::ipow(dd, L * lane);   // warp input -> thread input
+  const float powW = wb::ipow(dd, 32 * L);     // across one warp
+  const int ql = min(max(qlen[b], 0), Q);
   const int tl = tlen[b];
-  const size_t wb = (size_t)b * W;
-  float M = lane ? m0[wb + k] : 0.f;
-  float I = lane ? i0[wb + k] : 0.f;
-  float D = lane ? d0[wb + k] : 0.f;
-  int j = lane ? j0[wb + k] : 0;
-  int rc = lane ? rc0[wb + k] : 0;
+  const size_t wbase = (size_t)b * W;
+  // T: the last row computed, before its scale (at first row 0, scaled)
+  float TM[L], TI[L], TD[L];
+  int j[L], rc[L];
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    const bool v = l < nv;
+    TM[l] = v ? m0[wbase + k0 + l] : 0.f;
+    TI[l] = v ? i0[wbase + k0 + l] : 0.f;
+    TD[l] = v ? d0[wbase + k0 + l] : 0.f;
+    j[l] = v ? j0[wbase + k0 + l] : NO_COLUMN;
+    rc[l] = v ? rc0[wbase + k0 + l] : 4;
+  }
+  // edge lanes of the pair's neighbouring warps (0 at the band's ends)
+  float lM = 0.f, lI = 0.f, lD = 0.f, rM = 0.f, rI = 0.f, rD = 0.f;
+  int rR = 4;
+  float* sw = sm[warp];
+  auto exchange_edges = [&]() {
+    if constexpr (WPP > 1) {
+      if (lane == 0) {
+        sw[3] = TM[0]; sw[4] = TI[0]; sw[5] = TD[0];
+        sw[6] = __int_as_float(rc[0]);
+      }
+      if (lane == 31) { sw[7] = TM[L - 1]; sw[8] = TI[L - 1]; sw[9] = TD[L - 1]; }
+      wb::pair_sync(bar, WPP * 32);
+      if (lane == 0 && wip > 0) {
+        lM = sm[warp - 1][7]; lI = sm[warp - 1][8]; lD = sm[warp - 1][9];
+      }
+      if (lane == 31 && wip < WPP - 1) {
+        rM = sm[warp + 1][3]; rI = sm[warp + 1][4]; rD = sm[warp + 1][5];
+        rR = __float_as_int(sm[warp + 1][6]);
+      }
+    }
+  };
+  // the sum of the row in T over the pair (the row's scale, less EPS)
+  auto row_sum = [&]() {
+    float s = 0.f;
+#pragma unroll
+    for (int l = 0; l < L; ++l) s += TM[l] + TI[l] + TD[l];
+    return wb::warp_sum(s);
+  };
+  exchange_edges();
   const float* em = emis + (size_t)b * 5 * Q;
   const int32_t* srow = shifts + (size_t)b * Q;
   const int32_t* irow = inc + (size_t)b * Q;
+  const size_t tb = (size_t)b * Q * W + k0;
+  TablePtrs out{outM + tb, outI + tb, outD + tb};
+  float* oLs = outLs + (size_t)b * Q;
+  wb::RowTile cur;
+  cur.buf = streams[warp];
+  cur.next = 0;
+  cur.fetch(srow, irow, em, Q, ql, 0, 1, lane);
+  cur.fetch(srow, irow, em, Q, ql, wb::TILE_ROWS, 1, lane);
+  cur.take(lane);
+  wb::Row rw = cur.row(0);
+  int src = 0;
 
-  for (int r = 0; r < Q; ++r) {
-    const int i = r + 1;
-    const int sv = srow[r];
-    const int newc = irow[r];
-    const float e0 = em[r], e1 = em[Q + r], e2 = em[2 * Q + r],
-                e3 = em[3 * Q + r], ei = em[4 * Q + r];
-    const bool one = sv == 1;
-    mbuf[k] = M; ibuf[k] = I; dbuf[k] = D; rcbuf[k] = rc;
-    __syncthreads();
-    const float Ml = k > 0 ? mbuf[k - 1] : 0.f;
-    const float Il = k > 0 ? ibuf[k - 1] : 0.f;
-    const float Dl = k > 0 ? dbuf[k - 1] : 0.f;
-    const float Mr = k + 1 < W ? mbuf[k + 1] : 0.f;
-    const float Ir = k + 1 < W ? ibuf[k + 1] : 0.f;
-    const float Dr = k + 1 < W ? dbuf[k + 1] : 0.f;
-    const int rc_next = (k == W - 1) ? newc : (k + 1 < W ? rcbuf[k + 1] : 0);
-    __syncthreads();
-    const float Md = one ? M : Ml, Id = one ? I : Il, Dd = one ? D : Dl;
-    const float Mu = one ? Mr : M, Iu = one ? Ir : I, Du = one ? Dr : D;
-    const int rc_n = one ? rc_next : rc;
-    const int j_n = j + sv;
-    const bool ok = lane && j_n >= 1 && j_n <= tl;
-    const float e = ok ? pick_emis(rc_n, e0, e1, e2, e3) : 0.f;
-    const float Mrow = e * (t.mm * Md + t.im * Id + t.dm * Dd);
-    float Irow = ei * (t.mi * Mu + t.ii * Iu + t.di * Du);
-    Irow = (lane && j_n <= tl) ? Irow : 0.f;
-    // c[k] = tmd * Mrow[k-1] + tid * Irow[k-1]
-    mbuf[k] = Mrow; ibuf[k] = Irow;
-    __syncthreads();
-    const float c = k > 0 ? t.md * mbuf[k - 1] + t.id * ibuf[k - 1] : 0.f;
-    __syncthreads();
-    float Drow = block_linrec_fwd(lane ? c : 0.f, t.dd, ys, as);
-    Drow = ok ? Drow : 0.f;
-    const float sc = block_sum(lane ? Mrow + Irow + Drow : 0.f, ys) + 1e-30f;
-    const bool live = i <= ql;
-    if (live) {
-      M = Mrow / sc;
-      I = Irow / sc;
-      D = Drow / sc;
-      j = j_n;
-      rc = rc_n;
+  // Row r from T = row r - 1 before its scale: the rows are linear in the
+  // previous row, so the scale of row r - 1 (a reduction) runs beside the
+  // row's own chain and is applied at its end.
+  for (int r = 0; r < ql; ++r) {           // every row here is live
+    const wb::Row nrw = cur.row(src + 1);  // the next row's streams
+    float s = row_sum();
+    float Mr[L], Ir[L];
+    int rn[L];
+    if (rw.sv == 1) {
+      // diagonal from the same lane, up from lane k + 1
+      float eM = __shfl_down_sync(FULL_MASK, TM[0], 1);
+      float eI = __shfl_down_sync(FULL_MASK, TI[0], 1);
+      float eD = __shfl_down_sync(FULL_MASK, TD[0], 1);
+      int eR = __shfl_down_sync(FULL_MASK, rc[0], 1);
+      if (lane == 31) { eM = rM; eI = rI; eD = rD; eR = rR; }
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        const float uM = l + 1 < L ? TM[l + 1] : eM;
+        const float uI = l + 1 < L ? TI[l + 1] : eI;
+        const float uD = l + 1 < L ? TD[l + 1] : eD;
+        const int ur = l + 1 < L ? rc[l + 1] : eR;
+        rn[l] = l == wl ? rw.nc : ur;
+        Mr[l] = tr.mm * TM[l] + tr.im * TI[l] + tr.dm * TD[l];
+        Ir[l] = tr.mi * uM + tr.ii * uI + tr.di * uD;
+      }
+    } else {
+      // diagonal from lane k - 1, up from the same lane
+      float eM = __shfl_up_sync(FULL_MASK, TM[L - 1], 1);
+      float eI = __shfl_up_sync(FULL_MASK, TI[L - 1], 1);
+      float eD = __shfl_up_sync(FULL_MASK, TD[L - 1], 1);
+      if (lane == 0) { eM = lM; eI = lI; eD = lD; }
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        const float dM = l > 0 ? TM[l - 1] : eM;
+        const float dI = l > 0 ? TI[l - 1] : eI;
+        const float dD = l > 0 ? TD[l - 1] : eD;
+        rn[l] = rc[l];
+        Mr[l] = tr.mm * dM + tr.im * dI + tr.dm * dD;
+        Ir[l] = tr.mi * TM[l] + tr.ii * TI[l] + tr.di * TD[l];
+      }
     }
-    if (lane) {
-      const size_t o = ((size_t)b * Q + r) * W + k;
-      outM[o] = M; outI[o] = I; outD[o] = D;
+    float dmask[L];   // 1 where the Del state lives (column in 1..tl)
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      const int jn = j[l] + rw.sv;
+      const bool ok = (unsigned)(jn - 1) < (unsigned)tl;   // 1 <= jn <= tl
+      const float e = cur.match(src, rn[l]);
+      Mr[l] *= ok ? e : 0.f;
+      Ir[l] *= jn <= tl ? rw.ei : 0.f;
+      dmask[l] = ok ? 1.f : 0.f;
+      j[l] = jn;
+      rc[l] = rn[l];
     }
-    if (k == 0) outLs[(size_t)b * Q + r] = live ? logf(sc) : 0.f;
+    // Del chain D[k] = c[k] + dd D[k-1], c[k] = md Mrow[k-1] + id Irow[k-1].
+    // e_out is the thread's part of D at the next thread's first lane; the
+    // scan carries it, and the thread's first lane takes the carry E_in.
+    float c[L];
+#pragma unroll
+    for (int l = 1; l < L; ++l) c[l] = tr.md * Mr[l - 1] + tr.id * Ir[l - 1];
+    float z = 0.f;
+#pragma unroll
+    for (int l = 1; l < L; ++l) z = fmaf(dd, z, c[l]);
+    const float e_out = fmaf(dd, z, tr.md * Mr[L - 1] + tr.id * Ir[L - 1]);
+    const float E = wb::warp_linrec_up(e_out, am);
+    float Ein = __shfl_up_sync(FULL_MASK, E, 1);
+    if (lane == 0) Ein = 0.f;
+    float G = 0.f;   // D at the warp's first lane
+    if constexpr (WPP > 1) {
+      if (lane == 31) sw[0] = E;
+      if (lane == 0) sw[2] = s;
+      wb::pair_sync(bar, WPP * 32);
+      for (int w = 0; w < wip; ++w) G = sm[w0 + w][0] + powW * G;
+      s = 0.f;
+      for (int w = 0; w < WPP; ++w) s += sm[w0 + w][2];
+    }
+    float Dr[L];
+    float y = Ein + powT * G;
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      if (l > 0) y = fmaf(dd, y, c[l]);
+      Dr[l] = y * dmask[l];
+    }
+    const float inv = r == 0 ? 1.f : wb::rcp_approx(s + 1e-30f);
+    if (r > 0) {                           // row r - 1, scaled
+#pragma unroll
+      for (int l = 0; l < L; ++l) { TM[l] *= inv; TI[l] *= inv; TD[l] *= inv; }
+      out.store<L>(nv, vec, TM, TI, TD);
+      out.step(W);
+      if (wip == 0 && lane == 0) oLs[r - 1] = s + 1e-30f;
+    }
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      TM[l] = Mr[l] * inv;
+      TI[l] = Ir[l] * inv;
+      TD[l] = Dr[l] * inv;
+    }
+    exchange_edges();
+    rw = nrw;
+    if (++src == wb::TILE_ROWS) {
+      src = 0;
+      cur.fetch(srow, irow, em, Q, ql, r + 1 + wb::TILE_ROWS, 1, lane);
+      cur.take(lane);
+    }
+  }
+  if (ql > 0) {                            // the last row, scaled
+    float s = row_sum();
+    if constexpr (WPP > 1) {
+      if (lane == 0) sw[2] = s;
+      wb::pair_sync(bar, WPP * 32);
+      s = 0.f;
+      for (int w = 0; w < WPP; ++w) s += sm[w0 + w][2];
+    }
+    const float inv = wb::rcp_approx(s + 1e-30f);
+#pragma unroll
+    for (int l = 0; l < L; ++l) { TM[l] *= inv; TI[l] *= inv; TD[l] *= inv; }
+    out.store<L>(nv, vec, TM, TI, TD);
+    out.step(W);
+    if (wip == 0 && lane == 0) oLs[ql - 1] = s + 1e-30f;
+  }
+  // rows past q_len repeat the frozen state
+  for (int r = ql; r < Q; ++r) {
+    out.store<L>(nv, vec, TM, TI, TD);
+    out.step(W);
+  }
+  if (wip == 0) {                          // scales -> log scales
+    __syncwarp();
+    for (int r = lane; r < Q; r += 32) oLs[r] = r < ql ? logf(oLs[r]) : 0.f;
   }
 }
 
-__global__ void bwd_tables_kernel(const float* __restrict__ emis,
-                                  const int32_t* __restrict__ shifts,
-                                  const int32_t* __restrict__ inc,
-                                  const int32_t* __restrict__ rcq,
-                                  const int32_t* __restrict__ jq,
-                                  const float* __restrict__ bm0,
-                                  const float* __restrict__ bi0,
-                                  const float* __restrict__ bd0,
-                                  const int32_t* __restrict__ qlen,
-                                  const int32_t* __restrict__ tlen,
-                                  const int32_t* __restrict__ strand,
-                                  const float* __restrict__ trans,
-                                  const float* __restrict__ trans2,
-                                  float* __restrict__ outM,
-                                  float* __restrict__ outI,
-                                  float* __restrict__ outD,
-                                  float* __restrict__ outLs,
-                                  int B, int Q, int W) {
-  extern __shared__ float bsm[];
-  float* mbuf = bsm;
-  float* ibuf = mbuf + blockDim.x;
-  int* rcbuf = (int*)(ibuf + blockDim.x);
-  float* ys = (float*)(rcbuf + blockDim.x);
-  float* as = ys + 32;
-
-  const int b = blockIdx.x;
-  const int k = threadIdx.x;
-  const bool lane = k < W;
-  const Trans t = load_trans(strand[b] > 0 ? trans2 : trans);
-  const int ql = qlen[b];
+template <int L, int WPP>
+__global__ void __launch_bounds__(32 * block_warps(WPP))
+bwd_tables_kernel(const float* __restrict__ emis,
+                  const int32_t* __restrict__ shifts,
+                  const int32_t* __restrict__ inc,
+                  const int32_t* __restrict__ rcq,
+                  const int32_t* __restrict__ jq,
+                  const float* __restrict__ bm0, const float* __restrict__ bi0,
+                  const float* __restrict__ bd0,
+                  const int32_t* __restrict__ qlen,
+                  const int32_t* __restrict__ tlen,
+                  const int32_t* __restrict__ strand,
+                  const float* __restrict__ trans,
+                  const float* __restrict__ trans2, float* __restrict__ outM,
+                  float* __restrict__ outI, float* __restrict__ outD,
+                  float* __restrict__ outLs, int B, int Q, int W, int ppb) {
+  __shared__ float sm[block_warps(WPP)][SM_SLOTS];
+  __shared__ float streams[block_warps(WPP)][wb::STREAM_WORDS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wip = warp % WPP;
+  const int w0 = warp - wip;
+  const int b = blockIdx.x * ppb + warp / WPP;
+  if (b >= B) return;
+  const int bar = 1 + warp / WPP;
+  const int k0 = (wip * 32 + lane) * L;
+  const int nv = W - k0;
+  const bool vec = (W & 3) == 0;
+  const Trans tr = load_trans(strand[b] > 0 ? trans2 : trans);
+  const float dd = tr.dd;
+  float a[5], am[5];
+  wb::scan_powers(dd, L, a);
+  wb::down_multipliers(a, lane, am);
+  const float powT = wb::ipow(dd, L * (31 - lane) + 1);  // next warp -> thread
+  const float powW = wb::ipow(dd, 32 * L);               // across one warp
+  const int ql = min(max(qlen[b], 0), Q);
   const int tl = tlen[b];
-  const size_t wb = (size_t)b * W;
-  float bM = lane ? bm0[wb + k] : 0.f;
-  float bI = lane ? bi0[wb + k] : 0.f;
-  float bD = lane ? bd0[wb + k] : 0.f;
-  int rc = lane ? rcq[wb + k] : 0;   // r[off[i] + k] at the current row
-  int j = lane ? jq[wb + k] : 0;     // off[Q] + k
+  const size_t wbase = (size_t)b * W;
+  // T: the last row computed (row i + 1), before its scale (at first the
+  // scaled init at row q_len)
+  float TM[L], TI[L], TD[L], vmask[L];
+  int j[L], rc[L];   // rc: r[off[i] + k] at the current row; j: off[i] + k
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    const bool v = l < nv;
+    TM[l] = v ? bm0[wbase + k0 + l] : 0.f;
+    TI[l] = v ? bi0[wbase + k0 + l] : 0.f;
+    TD[l] = v ? bd0[wbase + k0 + l] : 0.f;
+    j[l] = v ? jq[wbase + k0 + l] : NO_COLUMN;
+    rc[l] = v ? rcq[wbase + k0 + l] : 4;
+    vmask[l] = v ? 1.f : 0.f;
+  }
+  const size_t tb = (size_t)b * Q * W + k0;
+  float* oLs = outLs + (size_t)b * Q;
+  // rows at or past q_len keep the init state
+  TablePtrs out{outM + tb + (size_t)ql * W, outI + tb + (size_t)ql * W,
+                outD + tb + (size_t)ql * W};
+  for (int i = ql; i < Q; ++i) {
+    out.store<L>(nv, vec, TM, TI, TD);
+    out.step(W);
+  }
+  float lI = 0.f, rM = 0.f;
+  int lR = 4;
+  float* sw = sm[warp];
+  auto exchange_edges = [&]() {
+    if constexpr (WPP > 1) {
+      if (lane == 0) sw[3] = TM[0];
+      if (lane == 31) { sw[7] = TI[L - 1]; sw[8] = __int_as_float(rc[L - 1]); }
+      wb::pair_sync(bar, WPP * 32);
+      if (lane == 0 && wip > 0) {
+        lI = sm[warp - 1][7]; lR = __float_as_int(sm[warp - 1][8]);
+      }
+      if (lane == 31 && wip < WPP - 1) rM = sm[warp + 1][3];
+    }
+  };
+  // the max of the row in T over the pair (the row's scale, less EPS)
+  auto row_max = [&]() {
+    float m = 0.f;
+#pragma unroll
+    for (int l = 0; l < L; ++l) m = fmaxf(m, TM[l] + TI[l] + TD[l]);
+    return wb::warp_max(m);
+  };
+  exchange_edges();
   const float* em = emis + (size_t)b * 5 * Q;
   const int32_t* srow = shifts + (size_t)b * Q;
   const int32_t* irow = inc + (size_t)b * Q;
+  out = TablePtrs{outM + tb + (size_t)(ql - 1) * W,
+                  outI + tb + (size_t)(ql - 1) * W,
+                  outD + tb + (size_t)(ql - 1) * W};
+  wb::RowTile cur;
+  cur.buf = streams[warp];
+  cur.next = 0;
+  cur.fetch(srow, irow, em, Q, ql, ql - 1, -1, lane);
+  cur.fetch(srow, irow, em, Q, ql, ql - 1 - wb::TILE_ROWS, -1, lane);
+  cur.take(lane);
+  wb::Row rw = cur.row(0);
+  int src = 0;
 
-  for (int i = Q - 1; i >= 0; --i) {   // row i from row i + 1
-    const int sv = srow[i];
-    const int newc = irow[i];
-    const float e0 = em[i], e1 = em[Q + i], e2 = em[2 * Q + i],
-                e3 = em[3 * Q + i], ei = em[4 * Q + i];
-    const bool one = sv == 1;
-    mbuf[k] = bM; ibuf[k] = bI; rcbuf[k] = rc;
-    __syncthreads();
-    const float bMr = k + 1 < W ? mbuf[k + 1] : 0.f;
-    const float bIl = k > 0 ? ibuf[k - 1] : 0.f;
-    const int rc_prev = (k == 0) ? newc : rcbuf[k - 1];
-    __syncthreads();
-    const int rc_i = one ? rc_prev : rc;
-    const int j_i = j - sv;
-    const float e = (lane && j_i + 1 <= tl) ? pick_emis(rc_i, e0, e1, e2, e3)
-                                             : 0.f;
-    const float bM1 = one ? bM : bMr;
-    const float bI1 = one ? bIl : bI;
-    const float u = e * bM1;
-    const float v = ei * bI1;
-    const float c = t.dm * u + t.di * v;
-    float bDrow = block_linrec_rev(lane ? c : 0.f, t.dd, ys, as);
-    // w[k] = bDrow[k + 1]
-    mbuf[k] = bDrow;
-    __syncthreads();
-    const float w = k + 1 < W ? mbuf[k + 1] : 0.f;
-    __syncthreads();
-    const bool ok = lane && j_i <= tl;
-    const float bMrow = ok ? t.mm * u + t.mi * v + t.md * w : 0.f;
-    const float bIrow = ok ? t.im * u + t.ii * v + t.id * w : 0.f;
-    bDrow = ok ? bDrow : 0.f;
-    const float sc = block_max(lane ? bMrow + bIrow + bDrow : 0.f, ys) + 1e-30f;
-    const bool live = i < ql;
-    if (live) {
-      bM = bMrow / sc;
-      bI = bIrow / sc;
-      bD = bDrow / sc;
-      rc = rc_i;
-      j = j_i;
+  // Row i = q_len - 1 - n from T = row i + 1 before its scale (see the
+  // forward kernel).
+  for (int n = 0; n < ql; ++n) {
+    const wb::Row nrw = cur.row(src + 1);
+    float m = row_max();
+    float M1[L], I1[L];
+    int ri[L];
+    if (rw.sv == 1) {
+      // I from lane k - 1, M from the same lane; chars move right
+      float eI = __shfl_up_sync(FULL_MASK, TI[L - 1], 1);
+      int eR = __shfl_up_sync(FULL_MASK, rc[L - 1], 1);
+      if (lane == 0) { eI = lI; eR = k0 == 0 ? rw.nc : lR; }
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        M1[l] = TM[l];
+        I1[l] = l > 0 ? TI[l - 1] : eI;
+        ri[l] = l > 0 ? rc[l - 1] : eR;
+      }
+    } else {
+      float eM = __shfl_down_sync(FULL_MASK, TM[0], 1);
+      if (lane == 31) eM = rM;
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        M1[l] = l + 1 < L ? TM[l + 1] : eM;
+        I1[l] = TI[l];
+        ri[l] = rc[l];
+      }
     }
-    if (lane) {
-      const size_t o = ((size_t)b * Q + i) * W + k;
-      outM[o] = bM; outI[o] = bI; outD[o] = bD;
+    float u[L], v[L], c[L], okm[L];
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      const int ji = j[l] - rw.sv;
+      const float e = cur.match(src, ri[l]);
+      u[l] = (ji < tl ? e : 0.f) * M1[l];
+      v[l] = rw.ei * I1[l];
+      c[l] = (tr.dm * u[l] + tr.di * v[l]) * vmask[l];
+      okm[l] = ji <= tl ? 1.f : 0.f;
+      j[l] = ji;
+      rc[l] = ri[l];
     }
-    if (k == 0) outLs[(size_t)b * Q + i] = live ? logf(sc) : 0.f;
+    // reverse Del chain D[k] = c[k] + dd D[k+1]
+    float z = 0.f;
+#pragma unroll
+    for (int l = L - 1; l >= 0; --l) z = fmaf(dd, z, c[l]);
+    const float Y = wb::warp_linrec_down(z, am);
+    float Yn = __shfl_down_sync(FULL_MASK, Y, 1);
+    if (lane == 31) Yn = 0.f;
+    float Dn = 0.f;   // D at the first lane of the next warp
+    if constexpr (WPP > 1) {
+      if (lane == 0) { sw[0] = Y; sw[2] = m; }
+      wb::pair_sync(bar, WPP * 32);
+      for (int w = WPP - 1; w > wip; --w) Dn = sm[w0 + w][0] + powW * Dn;
+      m = sm[w0][2];
+      for (int w = 1; w < WPP; ++w) m = fmaxf(m, sm[w0 + w][2]);
+    }
+    float Dr[L];
+    float y = dd * Yn + powT * Dn;
+#pragma unroll
+    for (int l = L - 1; l >= 0; --l) {
+      y = l == L - 1 ? c[l] + y : fmaf(dd, y, c[l]);
+      Dr[l] = y;
+    }
+    float wn = __shfl_down_sync(FULL_MASK, Dr[0], 1);
+    if (lane == 31) wn = Dn;
+    float Mr[L], Ir[L];
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      const float w = l + 1 < L ? Dr[l + 1] : wn;
+      Mr[l] = (tr.mm * u[l] + tr.mi * v[l] + tr.md * w) * okm[l];
+      Ir[l] = (tr.im * u[l] + tr.ii * v[l] + tr.id * w) * okm[l];
+    }
+    const float inv = n == 0 ? 1.f : wb::rcp_approx(m + 1e-30f);
+    if (n > 0) {                           // row i + 1, scaled
+#pragma unroll
+      for (int l = 0; l < L; ++l) { TM[l] *= inv; TI[l] *= inv; TD[l] *= inv; }
+      out.store<L>(nv, vec, TM, TI, TD);
+      out.step(-W);
+      if (wip == 0 && lane == 0) oLs[ql - n] = m + 1e-30f;
+    }
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      TM[l] = Mr[l] * inv;
+      TI[l] = Ir[l] * inv;
+      TD[l] = Dr[l] * okm[l] * inv;
+    }
+    exchange_edges();
+    rw = nrw;
+    if (++src == wb::TILE_ROWS) {
+      src = 0;
+      cur.fetch(srow, irow, em, Q, ql, ql - 2 - n - wb::TILE_ROWS, -1, lane);
+      cur.take(lane);
+    }
+  }
+  if (ql > 0) {                            // row 0, scaled
+    float m = row_max();
+    if constexpr (WPP > 1) {
+      if (lane == 0) sw[2] = m;
+      wb::pair_sync(bar, WPP * 32);
+      m = sm[w0][2];
+      for (int w = 1; w < WPP; ++w) m = fmaxf(m, sm[w0 + w][2]);
+    }
+    const float inv = wb::rcp_approx(m + 1e-30f);
+#pragma unroll
+    for (int l = 0; l < L; ++l) { TM[l] *= inv; TI[l] *= inv; TD[l] *= inv; }
+    out.store<L>(nv, vec, TM, TI, TD);
+    if (wip == 0 && lane == 0) oLs[0] = m + 1e-30f;
+  }
+  if (wip == 0) {                          // scales -> log scales
+    __syncwarp();
+    for (int i = lane; i < Q; i += 32) oLs[i] = i < ql ? logf(oLs[i]) : 0.f;
   }
 }
 
-extern "C" int fwd_tables_launch(const float* emis, const int32_t* shifts,
-                                 const int32_t* inc, const int32_t* rc0,
-                                 const int32_t* j0, const float* m0,
-                                 const float* i0, const float* d0,
-                                 const int32_t* qlen, const int32_t* tlen,
-                                 const int32_t* strand, const float* trans,
-                                 const float* trans2, float* outM, float* outI,
-                                 float* outD, float* outLs, int B, int Q, int W,
-                                 void* stream) {
-  if (B == 0) return 0;
-  const int threads = ((W + 31) / 32) * 32;
-  const size_t shmem = 4 * threads * sizeof(float) + 64 * sizeof(float);
-  fwd_tables_kernel<<<B, threads, shmem, (cudaStream_t)stream>>>(
-      emis, shifts, inc, rc0, j0, m0, i0, d0, qlen, tlen, strand, trans,
-      trans2, outM, outI, outD, outLs, B, Q, W);
-  return (int)cudaGetLastError();
-}
+// The geometries this library is built for: (lanes per thread, warps per
+// pair).  ops/phmm_tables.py::tables_geometry picks one of them.
+#define TABLE_GEOMETRIES(X) \
+  X(1, 1) X(2, 1) X(4, 1) X(4, 2) X(4, 4) X(4, 8) X(4, 16)
 
-extern "C" int bwd_tables_launch(const float* emis, const int32_t* shifts,
-                                 const int32_t* inc, const int32_t* rcq,
-                                 const int32_t* jq, const float* bm0,
-                                 const float* bi0, const float* bd0,
-                                 const int32_t* qlen, const int32_t* tlen,
-                                 const int32_t* strand, const float* trans,
-                                 const float* trans2, float* outM, float* outI,
-                                 float* outD, float* outLs, int B, int Q, int W,
-                                 void* stream) {
-  if (B == 0) return 0;
-  const int threads = ((W + 31) / 32) * 32;
-  const size_t shmem = 3 * threads * sizeof(float) + 64 * sizeof(float);
-  bwd_tables_kernel<<<B, threads, shmem, (cudaStream_t)stream>>>(
-      emis, shifts, inc, rcq, jq, bm0, bi0, bd0, qlen, tlen, strand, trans,
-      trans2, outM, outI, outD, outLs, B, Q, W);
+#define TABLE_ARGS                                                          \
+  const float *emis, const int32_t *shifts, const int32_t *inc,             \
+      const int32_t *rc0, const int32_t *j0, const float *m0,               \
+      const float *i0, const float *d0, const int32_t *qlen,                \
+      const int32_t *tlen, const int32_t *strand, const float *trans,       \
+      const float *trans2, float *outM, float *outI, float *outD,           \
+      float *outLs, int B, int Q, int W, int lanes, int warps, int ppb,     \
+      void *stream
+#define TABLE_PASS                                                          \
+  emis, shifts, inc, rc0, j0, m0, i0, d0, qlen, tlen, strand, trans,        \
+      trans2, outM, outI, outD, outLs, B, Q, W, ppb
+
+// Returns 0, a CUDA error code, or GEOMETRY_ERROR for a geometry the
+// library was not built for (or that does not cover W).
+#define TABLE_LAUNCH(kernel)                                                \
+  if (B == 0) return 0;                                                     \
+  if (W < 1 || W > 2048 || ppb < 1 || lanes * 32 * warps < W ||             \
+      ppb * warps > block_warps(warps))                                     \
+    return GEOMETRY_ERROR;                                                  \
+  const dim3 grid((B + ppb - 1) / ppb), block(ppb * warps * 32);            \
+  cudaStream_t s = (cudaStream_t)stream;                                    \
+  bool known = false;                                                       \
+  TABLE_GEOMETRIES(kernel)                                                  \
+  if (!known) return GEOMETRY_ERROR;                                        \
   return (int)cudaGetLastError();
-}
+
+#define FWD_CASE(L_, WPP_)                                                  \
+  if (lanes == L_ && warps == WPP_) {                                       \
+    fwd_tables_kernel<L_, WPP_><<<grid, block, 0, s>>>(TABLE_PASS);         \
+    known = true;                                                           \
+  }
+#define BWD_CASE(L_, WPP_)                                                  \
+  if (lanes == L_ && warps == WPP_) {                                       \
+    bwd_tables_kernel<L_, WPP_><<<grid, block, 0, s>>>(TABLE_PASS);         \
+    known = true;                                                           \
+  }
+
+extern "C" int fwd_tables_launch(TABLE_ARGS) { TABLE_LAUNCH(FWD_CASE) }
+
+// The backward pass takes the band chars and columns of row Q (rcq, jq)
+// and the backward init (bm0, bi0, bd0) in the forward's rc0, j0, m0, i0,
+// d0 slots.
+extern "C" int bwd_tables_launch(TABLE_ARGS) { TABLE_LAUNCH(BWD_CASE) }

@@ -7,11 +7,14 @@ directory, keyed by a hash of the sources, so a changed source rebuilds.
 :func:`build` starts one ``nvcc`` per source, all at once.
 
 Every launch goes on PyTorch's current stream; each C entry point returns
-``cudaGetLastError()`` and :func:`launch` raises when it is not 0.
+``cudaGetLastError()``, or a negative code of its own checks (such as a
+launch geometry it was not built for), and :func:`launch` raises when it
+is not 0.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -35,15 +38,22 @@ BUILD_LOG: dict[str, str] = {}
 
 
 class Launches:
-    """Launch counter of one kernel wrapper: ``count`` goes up by one where
-    the wrapper launches its kernel, and nowhere else."""
+    """Launch counter of one kernel wrapper: :meth:`add` is called where the
+    wrapper launches its kernel, and nowhere else.  ``count`` is the number
+    of launches, ``shapes`` counts them by launch shape."""
 
     def __init__(self, name: str):
         self.name = name
         self.count = 0
+        self.shapes: collections.Counter = collections.Counter()
+
+    def add(self, shape: tuple) -> None:
+        self.count += 1
+        self.shapes[shape] += 1
 
     def reset(self) -> None:
         self.count = 0
+        self.shapes.clear()
 
 
 def nvcc() -> str:
@@ -124,7 +134,8 @@ def launch(name: str, fn: str, *args) -> None:
     f.restype = ctypes.c_int
     err = f(*cargs)
     if err != 0:
-        raise RuntimeError(f"{fn} failed with CUDA error {err}")
+        what = "CUDA error" if err > 0 else "entry point error"
+        raise RuntimeError(f"{fn} failed with {what} {err}")
 
 
 def check(t: torch.Tensor, dtype, shape, name: str) -> None:

@@ -25,6 +25,27 @@ EPS = 1e-30
 FWD_LAUNCHES = Launches("fwd_tables")
 BWD_LAUNCHES = Launches("bwd_tables")
 
+MAX_W = 2048            # 8 x 256, the widest band ``band_buckets`` reaches
+MAX_LANES = 4           # band lanes a thread keeps in registers
+
+
+def tables_geometry(W: int) -> tuple[int, int, int]:
+    """Launch geometry of the table kernels for band width ``W``:
+    (lanes per thread, warps per pair, pairs per block).  A thread holds
+    up to MAX_LANES lanes (the cost of a row is the instructions one
+    thread issues, so wide bands take more warps, 1 to 16, rather than more
+    lanes); a block holds 4 warps, or one pair of more.  Both counts are
+    powers of two (the kernels are built for those)."""
+    if not 1 <= W <= MAX_W:
+        raise ValueError(f"tables: band width {W} outside 1..{MAX_W}")
+    lanes = 1
+    while lanes < MAX_LANES and 32 * lanes < W:
+        lanes *= 2
+    warps = 1
+    while 32 * lanes * warps < W:
+        warps *= 2
+    return lanes, warps, max(1, 4 // warps)
+
 
 def _shr(x, n=1):
     """x[:, k] -> x[:, k-n] (0 fill)."""
@@ -178,8 +199,7 @@ def _launch_tables(kind, emis, shifts, inc, rc0, j0, m0, i0, d0, qlen, tlen,
                    strand, trans, trans2):
     B, W = rc0.shape
     Q = shifts.shape[1]
-    if not 1 <= W <= 1024:
-        raise ValueError(f"{kind}_tables: band width {W} outside 1..1024")
+    geometry = tables_geometry(W)
     f32, i32 = torch.float32, torch.int32
     for t, name, dt, shape in (
             (emis, "emis", f32, (B, 5 * Q)), (shifts, "shifts", i32, (B, Q)),
@@ -197,7 +217,7 @@ def _launch_tables(kind, emis, shifts, inc, rc0, j0, m0, i0, d0, qlen, tlen,
     outLs = torch.empty((B, Q), dtype=f32, device=dev)
     launch("phmm_tables", f"{kind}_tables_launch", emis, shifts, inc, rc0,
            j0, m0, i0, d0, qlen, tlen, strand, trans, trans2, outM, outI,
-           outD, outLs, B, Q, W)
+           outD, outLs, B, Q, W, *geometry)
     return outM, outI, outD, outLs
 
 
@@ -215,7 +235,7 @@ def fwd_tables(emis, shifts, inc, rc0, j0, m0, i0, d0, qlen, tlen, strand,
                                 tlen, strand, trans, trans2)
     out = _launch_tables("fwd", emis, shifts, inc, rc0, j0, m0, i0, d0, qlen,
                          tlen, strand, trans, trans2)
-    FWD_LAUNCHES.count += 1
+    FWD_LAUNCHES.add((rc0.shape[0], shifts.shape[1], rc0.shape[1]))
     return out
 
 
@@ -229,7 +249,7 @@ def bwd_tables(emis, shifts, inc, rcq, jq, bm0, bi0, bd0, qlen, tlen, strand,
                                 qlen, tlen, strand, trans, trans2)
     out = _launch_tables("bwd", emis, shifts, inc, rcq, jq, bm0, bi0, bd0,
                          qlen, tlen, strand, trans, trans2)
-    BWD_LAUNCHES.count += 1
+    BWD_LAUNCHES.add((rcq.shape[0], shifts.shape[1], rcq.shape[1]))
     return out
 
 

@@ -57,22 +57,35 @@ def test_edit_dp_kernel_matches_plain():
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("W", [128, 160])
-def test_table_kernels_match_plain(W):
+@pytest.mark.parametrize("W,B,spread", [
+    (128, 24, False), (160, 24, False), (256, 23, False), (512, 22, False),
+    (1000, 6, False), (1152, 6, False), (128, 23, True), (1152, 5, True)],
+    ids=["W128", "W160", "W256-B23", "W512", "W1000", "W1152",
+         "W128-qlen-spread-B23", "W1152-qlen-spread"])
+def test_table_kernels_match_plain(W, B, spread):
+    """Both table kernels against their plain versions at every geometry
+    the band widths of the pipeline reach (W 128: one warp a pair; 160 and
+    256: two; 512: four; 1000: eight, with masked lanes; 1152: sixteen).
+    ``spread`` draws each pair's length from Q/2 to Q (the early stop at
+    q_len and the frozen rows after it); B 22 and 23 are not multiples of
+    the pairs a block holds (4 at one warp a pair, 2 at two)."""
     require_cuda()
     from jtk_tpu_torch.io import sim
     from jtk_tpu_torch.ops import phmm_tables as pt
     from jtk_tpu_torch.ops.banded_align import linear_offsets
     from jtk_tpu_torch.ops.phmm import PHMMParams
-    rng = np.random.default_rng(W)
-    B, Q, T = 24, 640, 600
+    rng = np.random.default_rng(W + B)
+    T = max(600, W + 200)
+    Q = ((T + 40 + 63) // 64) * 64
     tpl = np.full((B, T), 4, np.int8)
     qs = np.full((B, Q), 4, np.int8)
     q_lens = np.zeros(B, np.int64)
     t_lens = np.zeros(B, np.int64)
     offs = np.zeros((B, Q + 1), np.int64)
     for b in range(B):
-        t = sim.random_genome(rng, T - int(rng.integers(0, 30)))
+        n = int(rng.integers(Q // 2, T)) if spread else \
+            T - int(rng.integers(0, 30))
+        t = sim.random_genome(rng, n)
         r = sim.noisy_read(rng, t, 0.05)[:Q]
         tpl[b, :len(t)], qs[b, :len(r)] = t, r
         q_lens[b], t_lens[b] = len(r), len(t)

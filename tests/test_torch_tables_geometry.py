@@ -1,0 +1,93 @@
+"""Launch geometry of the K1 table kernels, and the port's tables against
+the JAX package at a band wider than 1024 (through the plain versions,
+at tests/test_pallas_phmm.py's tolerances: tables rtol 2e-3 / atol 1e-5,
+cumulative log scales rtol 1e-4 / atol 2e-2, lk atol 2e-2)."""
+
+import os
+import re
+
+import numpy as np
+import pytest
+
+from jtk_tpu.datamodel import HMMParam
+from jtk_tpu.io import sim
+from jtk_tpu.ops import phmm as jphmm
+from jtk_tpu.ops.banded_align import linear_offsets
+from jtk_tpu.ops.polish import effective_band
+from jtk_tpu_torch.ops import phmm as pphmm
+from jtk_tpu_torch.ops import phmm_tables as pt
+from torch_util import port_on_cpu  # noqa: F401
+
+CU = os.path.join(os.path.dirname(pt.__file__), os.pardir, "csrc",
+                  "phmm_tables.cu")
+
+
+def _built_geometries():
+    """(lanes, warps) pairs the CUDA source instantiates."""
+    with open(CU) as f:
+        src = f.read()
+    body = re.search(r"#define TABLE_GEOMETRIES\(X\)(.*?)\n\n", src,
+                     re.S).group(1)
+    return {(int(a), int(b)) for a, b in
+            re.findall(r"X\((\d+), (\d+)\)", body)}
+
+
+@pytest.mark.parametrize("W", [1, 31, 32, 128, 160, 512, 1024, 1152, 2048])
+def test_tables_geometry_covers_band(W):
+    lanes, warps, pairs = pt.tables_geometry(W)
+    assert 32 * lanes * warps >= W
+    # no more threads than the band needs: half of them would not cover it
+    assert lanes == 1 and warps == 1 or 16 * lanes * warps < W
+    # the register budget: a thread keeps at most MAX_LANES lanes of each
+    # table (chip_smoke.py fails on a ptxas spill of any built geometry)
+    assert lanes <= pt.MAX_LANES
+    assert (lanes, warps) in _built_geometries()
+    # a block holds 4 warps, or one pair of more
+    assert pairs >= 1 and warps * pairs == max(4, warps)
+
+
+@pytest.mark.parametrize("W", [0, 2049, 4096])
+def test_tables_geometry_rejects_band(W):
+    with pytest.raises(ValueError):
+        pt.tables_geometry(W)
+
+
+def test_tables_match_jax_at_band_1152():
+    """A pileup with one read ~1 kb shorter than its template widens the
+    band to 1152 (``effective_band``), past the old 1024 limit."""
+    rng = np.random.default_rng(11)
+    jp = jphmm.PHMMParams.from_hmmparam(HMMParam())
+    pp = pphmm.params_from_numpy(np.asarray(jp.trans),
+                                 np.asarray(jp.mat_emit),
+                                 np.asarray(jp.ins_emit), "cpu")
+    tlen = 1100
+    template = sim.random_genome(rng, tlen)
+    reads = [sim.noisy_read(rng, template, 0.08) for _ in range(2)]
+    start = int(rng.integers(0, tlen - 100))
+    reads.append(sim.noisy_read(rng, template[start:start + 100], 0.08))
+    q_lens = np.array([len(r) for r in reads], np.int32)
+    W = effective_band(64, q_lens, tlen)
+    assert W == 1152
+    Qpad = ((int(q_lens.max()) + 127) // 128) * 128
+    qs = np.full((len(reads), Qpad), 4, np.int8)
+    for i, r in enumerate(reads):
+        qs[i, :len(r)] = r
+    offs = np.stack([linear_offsets(int(n), tlen, Qpad, W) for n in q_lens])
+    lk, (fM, fI, fD), fcum, rcs, (bM, bI, bD), bcum = pt.tables_from_arrays(
+        qs, template, offs, q_lens, tlen, pp, W)
+    tpl = np.asarray(template, np.int8)
+    for i in range(len(qs)):
+        lk_w, (fMw, fIw, fDw), fcum_w, rcs_w = jphmm.forward_banded(
+            qs[i], tpl, offs[i], np.int32(q_lens[i]), np.int32(tlen), jp, W)
+        (bMw, bIw, bDw), bcum_w = jphmm.backward_banded(
+            qs[i], tpl, offs[i], np.int32(q_lens[i]), np.int32(tlen), jp, W)
+        assert abs(float(lk[i]) - float(lk_w)) < 2e-2
+        for got, want in ((fM, fMw), (fI, fIw), (fD, fDw), (bM, bMw),
+                          (bI, bIw), (bD, bDw)):
+            np.testing.assert_allclose(got[i].numpy(), np.asarray(want),
+                                       rtol=2e-3, atol=1e-5)
+        np.testing.assert_allclose(fcum[i].numpy(), np.asarray(fcum_w),
+                                   rtol=1e-4, atol=2e-2)
+        np.testing.assert_allclose(bcum[i].numpy(), np.asarray(bcum_w),
+                                   rtol=1e-4, atol=2e-2)
+        np.testing.assert_array_equal(rcs[i].numpy(), np.asarray(rcs_w))
