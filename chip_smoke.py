@@ -8,14 +8,18 @@
    started together);
 3. holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (the K1 tables at polish's B 192 / W 128 and W 512
-   and model tuning's B 40 / W 128 and W 256), and times both with CUDA
-   events, each beside its bound: K3 bit-exact
-   (stream, last row, decoded CIGARs); the K1 tables within rtol 2e-3 /
-   atol 1e-5 (tables) and rtol 1e-4 / atol 2e-2 (cumulative log scales);
-   K1l's lk within rtol 1e-4 / atol 2e-2 of its plain version and of K1f's
-   lk; the counts kernel within rtol 1e-3 / atol 1e-4; the
+   and model tuning's B 40 / W 128 and W 256; K1l also at the gain
+   calibration's B 256 / W 64 and with an N; K3 at the mapper's B 2048)
+   and at the band widths above 1024 that the pipeline can reach (K3 up to
+   8192, K1l and counts up to 2048), and times both with CUDA events,
+   each beside its bound: K3 bit-exact (stream, last row, decoded
+   CIGARs); the K1 tables within rtol 2e-3 / atol 1e-5 (tables) and rtol
+   1e-4 / atol 2e-2 (cumulative log scales); K1l's lk within rtol 1e-4 /
+   atol 2e-2 of its plain version and of K1f's lk; the counts kernel
+   within rtol 1e-3 / atol 1e-4 and bitwise equal in two calls; the
    PairHMMLikelihood gradient within rtol 1e-3 / atol 1e-4 (per bp) of
-   torch.autograd through the plain forward;
+   torch.autograd through the plain forward; it fails on a ptxas spill of
+   the K1 family or counts;
 4. path (a): the stage-by-stage slice reads -> GFA (entry, mask_repeats,
    select_chunks, pick_top_n_component, estimate/purge multiplicity,
    local_clustering, assemble with contig polishing) on a simulated 60 kb
@@ -25,7 +29,9 @@
    margin 500, seed 42), then a resume rerun from its checkpoints;
 6. counts every kernel's launches on each path (set to 0 just before it,
    read just after; path (a) by stage, path (b) by launch shape (B, Q, W),
-   the five most frequent of each kernel), checks the truth bars of
+   the five most frequent of each kernel), times each kernel at path
+   (b)'s three most-launched shapes and K3 at its longest Q (launches x
+   time, and x (time - bound)), checks the truth bars of
    tests/test_e2e.py on both
    (mean ARI > 0.6, mean contig error < 0.05, total length > 2/3 of the
    region for (a) and of both haplotypes for (b)), the five checkpoints and
@@ -33,7 +39,9 @@
 7. prints the kernels line, the card line, then {"ok": true, "device": ...}
    as the last line.  Any failure exits non-zero without the last line.
 
-``--kernels-only`` stops after step 3 (a quick build-and-check run).  The
+``--kernels-only`` stops after step 3 (a quick build-and-check run);
+``--skip-wide`` leaves out the widths above 1024 (for a tree whose kernels
+refuse them).  The
 script runs the ``jtk_tpu_torch`` beside it, so a copy of it placed in an
 unpacked ``git archive`` of an earlier commit checks and times that
 commit's kernels at the same shapes: a kernel redesign is timed against
@@ -60,6 +68,8 @@ SEED = 42
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM memory rate
 FP32_OPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 OUT_DIR = os.path.join(HERE, "chiprun_out", "chip_smoke")
+# libraries whose kernels must not spill (the script fails on a spill)
+NO_SPILL = ("phmm_tables", "phmm_lk", "phmm_counts")
 
 
 def log(*a):
@@ -92,6 +102,24 @@ def cuda_time(fn, reps: int, warmup: int = 1) -> float:
     return times[len(times) // 2]
 
 
+def device_ms(fn, reps: int = 5):
+    """Mean milliseconds the card spends in kernels per ``fn()`` call, from
+    torch.profiler's CUDA activity (without the host time between the
+    launches that ``cuda_time`` also counts); None if the trace has no
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages())
+    return us / 1e3 / reps if us > 0 else None
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -101,9 +129,12 @@ def nbytes(*ts) -> int:
 # ---------------------------------------------------------------------------
 
 
-def check_k3(rng, dev):
+def check_k3(rng, dev, wide=True):
     """K3 at B = 2048 candidates, Q = 2048 chunk rows, W = 256 (the
-    mapper's production shapes), infix mode as in encode."""
+    mapper's production shapes), infix mode as in encode; then, unless
+    ``wide`` is False, at the band widths above 1024 that consensus tiles
+    of more than ~7 kb reach (W 1152, 2048, 4096, and 8192, the limit:
+    2, 4 and 8 lanes a thread), bit-exact each."""
     import numpy as np
     import torch
 
@@ -175,12 +206,70 @@ def check_k3(rng, dev):
     log(f"K3 edit_dp B={B} Q={Q} W={W}: bit-exact stream+last+cigars "
         f"({n_valid} valid alignments), kernel {ms:.3f} ms, plain "
         f"{plain_ms:.1f} ms, bound {max(t_bytes, t_ops):.3f} ms")
-    return dict(name="edit_dp (K3)", route="cuda",
-                source="jtk_tpu_torch/csrc/edit_dp.cu",
-                replaces="jtk_tpu/ops/pallas_k3.py:33", max_abs_err=max_err,
-                ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=None)
+    row = dict(name="edit_dp (K3)", route="cuda",
+               source="jtk_tpu_torch/csrc/edit_dp.cu",
+               replaces="jtk_tpu/ops/pallas_k3.py:33", max_abs_err=max_err,
+               ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               library_ms=None, shape=dict(B=B, Q=Q, W=W))
+    del packed_k, packed_p, kargs, args
+    torch.cuda.empty_cache()
+    for Wd in (1152, 2048, 4096, 8192) if wide else ():
+        kargs = _k3_wide_inputs(rng, dev, W=Wd)
+        got, want = k3.edit_dp(*kargs), k3.edit_dp_plain(*kargs)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"K3 W={Wd}: kernel stream/last row differ "
+                                 f"from plain")
+        Bw, Qw = kargs[1].shape
+        ms_w = cuda_time(lambda: k3.edit_dp(*kargs), reps=5)
+        plain_w = cuda_time(lambda: k3.edit_dp_plain(*kargs), reps=1,
+                            warmup=0)
+        bound_w = max((nbytes(*kargs) + nbytes(*got)) / HBM_BYTES_PER_S,
+                      20.0 * Bw * Qw * Wd / FP32_OPS_PER_S) * 1e3
+        log(f"K3 edit_dp B={Bw} Q={Qw} W={Wd}: bit-exact stream+last row, "
+            f"kernel {ms_w:.3f} ms, plain {plain_w:.1f} ms, bound "
+            f"{bound_w:.4f} ms")
+        row[f"at_W{Wd}"] = dict(B=Bw, Q=Qw, W=Wd, ms=ms_w, plain_ms=plain_w,
+                                bound_ms=bound_w)
+        del got, want, kargs
+    return row
+
+
+def _k3_wide_inputs(rng, dev, W, B=8, margin=600):
+    """K3's kernel arguments for B chunks of ~W rows placed (infix) in read
+    windows 2 * margin longer, band W (a consensus tile's layout)."""
+    import numpy as np
+    import torch
+
+    from jtk_tpu_torch.io import sim
+    from jtk_tpu_torch.ops import edit_dp as k3
+    from jtk_tpu_torch.ops.banded_align import diagonal_offsets
+
+    Q = W + 256
+    T = Q + 2 * margin + 64
+    qs = np.full((B, Q), 4, np.int8)
+    rs = np.full((B, T), 4, np.int8)
+    q_lens = np.zeros(B, np.int64)
+    t_lens = np.zeros(B, np.int64)
+    offs = np.zeros((B, Q + 1), np.int64)
+    for b in range(B):
+        L = Q - int(rng.integers(0, 64))
+        c = sim.random_genome(rng, L)
+        win = np.concatenate([sim.random_genome(rng, margin),
+                              sim.noisy_read(rng, c, 0.06),
+                              sim.random_genome(rng, margin)])[:T]
+        qs[b, :L], rs[b, :len(win)] = c, win
+        q_lens[b], t_lens[b] = L, len(win)
+        offs[b] = diagonal_offsets(L, margin, len(win), Q, W)
+
+    def t(x, dt):
+        return torch.as_tensor(x, dtype=dt, device=dev)
+
+    tl = t(t_lens, torch.int64)
+    args = k3.k3_inputs(t(qs, torch.int32), t(rs, torch.int32),
+                        t(offs, torch.int64), tl, W, "infix")
+    return args + (t(q_lens, torch.int32), tl.to(torch.int32))
 
 
 TABLE_SHAPES = (("polish", 192, 128), ("polish_W512", 192, 512),
@@ -276,10 +365,14 @@ def check_tables(rng, dev):
     return rows
 
 
-def _pileup_pairs(rng, B, tlen, Qmult, W, err=0.05, jitter=40):
-    """B noisy reads against one random template (the model-tune and
-    gain-calibration layout): qs (B, Q) padded to ``Qmult``, offsets,
-    lengths and the effective band."""
+def _pileup_pairs(rng, B, tlen, Qmult, W, err=0.05, jitter=40, short=0):
+    """B noisy reads against one random template (the model-tune layout):
+    qs (B, Q) padded to ``Qmult``, offsets, lengths and the effective band.
+    One read starts ``short`` bases into the template, which widens the
+    band (``effective_band``) as a short read in a pileup does.  (A read
+    that ends early instead ends in a run of deletions: past ~20 of them
+    its end cell holds less than EPS of its last row's mass, and the
+    reference's lk, log(fin + EPS) + scales, is floored there; PERF.md §7.)"""
     import numpy as np
 
     from jtk_tpu_torch.io import sim
@@ -288,6 +381,8 @@ def _pileup_pairs(rng, B, tlen, Qmult, W, err=0.05, jitter=40):
 
     tpl = sim.random_genome(rng, tlen)
     reads = [sim.noisy_read(rng, tpl, err)[:tlen + jitter] for _ in range(B)]
+    if short:
+        reads[0] = reads[0][short:]
     q_lens = np.array([len(r) for r in reads], np.int64)
     W = effective_band(W, q_lens, tlen)
     Q = ((int(q_lens.max()) + Qmult - 1) // Qmult) * Qmult
@@ -298,12 +393,43 @@ def _pileup_pairs(rng, B, tlen, Qmult, W, err=0.05, jitter=40):
     return tpl, qs, offs, q_lens, W
 
 
-def check_lk(rng, dev):
-    """K1l at model tune's shape (B = 40 reads of one strand against a
-    ~2 kb chunk, Q = longest read rounded up to 64, W = 128) and at the
-    gain calibration's (B = 256 pairs of 100 bp, Q rounded up to 32,
-    W = 64), against its plain version and against K1f's lk."""
+def _calibration_pairs(rng, B=256, seq_len=100, W=64):
+    """The gain calibration's layout (stages/likelihood_gains.py
+    ``_batched_lks``): B reads of ~100 bp, each against its own template,
+    Q and T rounded up to 32, band W 64."""
     import numpy as np
+
+    from jtk_tpu_torch.io import sim
+    from jtk_tpu_torch.ops.banded_align import linear_offsets
+
+    tpls = [sim.random_genome(rng, seq_len + int(rng.integers(2, 10)))
+            for _ in range(B)]
+    reads = [sim.noisy_read(rng, t, 0.05) for t in tpls]
+    Q = ((max(len(r) for r in reads) + 31) // 32) * 32
+    T = ((max(len(t) for t in tpls) + 31) // 32) * 32
+    qs = np.full((B, Q), 4, np.int8)
+    rs = np.full((B, T), 4, np.int8)
+    for b, (r, t) in enumerate(zip(reads, tpls)):
+        qs[b, :len(r)], rs[b, :len(t)] = r, t
+    q_lens = np.array([len(r) for r in reads], np.int64)
+    t_lens = np.array([len(t) for t in tpls], np.int64)
+    offs = np.stack([linear_offsets(int(q), int(t), Q, W)
+                     for q, t in zip(q_lens, t_lens)])
+    return rs, qs, offs, q_lens, t_lens, W
+
+
+# K1l's shapes: model tuning's pileups (B 40 reads against a ~2 kb chunk;
+# a short read widens the band to 256, and past 1024 to 1152 and 2048), a
+# read with an N, and the gain calibration (B 256, Q 128, W 64)
+LK_SHAPES = (("model_tune", 0, False), ("model_tune_W256", 150, False),
+             ("model_tune_N", 0, True), ("model_tune_W1152", 1000, False),
+             ("model_tune_W2048", 1900, False), ("gain_calibration", 0, False))
+
+
+def check_lk(rng, dev, wide=True):
+    """K1l at the shapes of LK_SHAPES (``wide`` False leaves out W > 1024)
+    against its plain version and, on reads without N, against K1f's lk;
+    both within rtol 1e-4 / atol 2e-2."""
     import torch
 
     from jtk_tpu_torch.ops import phmm_lk as k1l
@@ -313,26 +439,41 @@ def check_lk(rng, dev):
     params = PHMMParams.default(dev)
     tabs = k1l.tables8(params, dev)
     res = []
-    for label, B, tlen, Qmult, W0 in (("model_tune", 40, 2000, 64, 128),
-                                      ("gain_calibration", 256, 100, 32, 64)):
-        tpl, qs, offs, q_lens, W = _pileup_pairs(rng, B, tlen, Qmult, W0)
-        tlen, B = len(tpl), len(qs)
+    for label, short, with_n in LK_SHAPES:
+        if not wide and label.endswith(("W1152", "W2048")):
+            continue
+        if label == "gain_calibration":
+            tpl, qs, offs, q_lens, tlen, W = _calibration_pairs(rng)
+        else:
+            tpl, qs, offs, q_lens, W = _pileup_pairs(rng, 40, 2000, 64, 128,
+                                                     short=short)
+            tlen = len(tpl)
+        if with_n:   # in-length N: emits with probability 0
+            qs[1, 30] = 4
+        B, Q = qs.shape
         args = k1l.lk_inputs(qs, tpl, offs, q_lens, tlen, W, device=dev)
         torch.cuda.synchronize()
         got = k1l.phmm_lk(*args, *tabs)
         want = k1l.phmm_lk_plain(*args, *tabs)
-        prep = pt.prep_tables_inputs(qs, tpl, offs, q_lens, tlen, params, W,
-                                     device=dev)
-        lk_f = pt.tables_batch(prep, W, backward=False)[0]
+        others = [(want, "plain")]
+        if not with_n:   # the tables prep scores an N as A
+            prep = pt.prep_tables_inputs(qs, tpl, offs, q_lens, tlen, params,
+                                         W, device=dev)
+            others.append((pt.tables_batch(prep, W, backward=False)[0],
+                           "K1f's lk"))
         torch.cuda.synchronize()
-        for other, what in ((want, "plain"), (lk_f, "K1f's lk")):
+        err = 0.0
+        for other, what in others:
             if not torch.allclose(got, other, rtol=1e-4, atol=2e-2):
                 raise AssertionError(
                     f"K1l {label}: lk differs from {what} (max "
                     f"{float((got - other).abs().max())})")
-        err = float((got - want).abs().max())
-        err_f = float((got - lk_f).abs().max())
+            err = max(err, float((got - other).abs().max()))
+        if with_n and not float(got[1]) < float(got[0]) - 1000:
+            raise AssertionError("K1l: a read with an N is not improbable")
         ms = cuda_time(lambda: k1l.phmm_lk(*args, *tabs), reps=5)
+        dev_ms = device_ms(lambda: k1l.phmm_lk(*args, *tabs))
+        dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.3f} ms"
         plain_ms = cuda_time(lambda: k1l.phmm_lk_plain(*args, *tabs),
                              reps=1, warmup=0)
         moved = nbytes(*args, *tabs) + got.numel() * 4
@@ -340,33 +481,39 @@ def check_lk(rng, dev):
         flops = 40.0 * W * float(q_lens.sum())
         t_bytes = moved / HBM_BYTES_PER_S * 1e3
         t_ops = flops / FP32_OPS_PER_S * 1e3
-        Q = qs.shape[1]
         log(f"K1l phmm_lk {label} B={B} Q={Q} W={W}: max abs err {err:.3g} "
-            f"(vs K1f lk {err_f:.3g}), kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.1f} ms, bound {max(t_bytes, t_ops):.4f} ms")
-        res.append(dict(label=label, B=B, Q=Q, W=W, err=max(err, err_f),
-                        ms=ms, plain_ms=plain_ms,
-                        bound_ms=max(t_bytes, t_ops),
+            f"(vs {', '.join(w for _o, w in others)}), kernel {ms:.3f} ms "
+            f"(device {dev_txt}), plain {plain_ms:.1f} ms, bound "
+            f"{max(t_bytes, t_ops):.4f} ms")
+        res.append(dict(label=label, B=B, Q=Q, W=W, err=err, ms=ms,
+                        device_ms=dev_ms,
+                        plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                         bound_by="bytes" if t_bytes >= t_ops
                         else "operations"))
-    r0, r1 = res
-    return dict(name="phmm_lk (K1l)", route="cuda",
-                source="jtk_tpu_torch/csrc/phmm_lk.cu",
-                replaces="jtk_tpu/ops/pallas_phmm.py:55",
-                max_abs_err=max(r0["err"], r1["err"]), ms=r0["ms"],
-                plain_ms=r0["plain_ms"], bound_ms=r0["bound_ms"],
-                bound_by=r0["bound_by"], library_ms=None,
-                shape=dict(B=r0["B"], Q=r0["Q"], W=r0["W"]),
-                at_gain_calibration={k: r1[k] for k in (
-                    "B", "Q", "W", "ms", "plain_ms", "bound_ms")})
+    r0 = res[0]
+    row = dict(name="phmm_lk (K1l)", route="cuda",
+               source="jtk_tpu_torch/csrc/phmm_lk.cu",
+               replaces="jtk_tpu/ops/pallas_phmm.py:55",
+               max_abs_err=max(r["err"] for r in res), ms=r0["ms"],
+               plain_ms=r0["plain_ms"], bound_ms=r0["bound_ms"],
+               bound_by=r0["bound_by"], library_ms=None,
+               shape=dict(B=r0["B"], Q=r0["Q"], W=r0["W"]))
+    for r in res[1:]:
+        row[f"at_{r['label']}"] = {k: r[k] for k in (
+            "B", "Q", "W", "ms", "device_ms", "plain_ms", "bound_ms")}
+    return row
 
 
-def check_counts(rng, dev):
-    """The counts kernel at model tune's shape (B = 40, Q ~ 2.1 k, W = 128)
-    against its plain version (rtol 1e-3 / atol 1e-4), and the whole
+COUNTS_SHAPES = (("model_tune", 0), ("model_tune_W256", 150),
+                 ("model_tune_W1152", 1000))
+
+
+def check_counts(rng, dev, wide=True):
+    """The counts kernel at model tune's shapes (B ~ 40, Q ~ 2.1 k, W 128,
+    256 and, unless ``wide`` is False, 1152) against its plain version
+    (rtol 1e-3 / atol 1e-4), bitwise equal in two calls; and the whole
     PairHMMLikelihood gradient against torch.autograd through the plain
     forward at B = 8, Q = 256."""
-    import numpy as np
     import torch
 
     from jtk_tpu_torch.ops import phmm_grad as pg
@@ -375,35 +522,56 @@ def check_counts(rng, dev):
     from jtk_tpu_torch.parallel import params_to_theta, theta_to_params
 
     params = PHMMParams.default(dev)
-    tpl, qs, offs, q_lens, W = _pileup_pairs(rng, 40, 2000, 64, 128)
-    batch = pg.PairBatch(qs, tpl, offs, q_lens, len(tpl), W, device=dev)
-    args = pg.counts_args(pg.counts_prep(params, batch), W)
-    torch.cuda.synchronize()
-    got = pg.phmm_counts(*args)
-    want = pg.phmm_counts_plain(*args)
-    torch.cuda.synchronize()
-    if not torch.allclose(got, want, rtol=1e-3, atol=1e-4):
-        raise AssertionError(f"counts: kernel differs from plain (max "
-                             f"{float((got - want).abs().max())})")
-    # each query base is emitted by exactly one M or I state
-    emitted = got[:, 9:].sum(1)
-    if not torch.allclose(emitted, batch.q_lens.to(torch.float32),
-                          rtol=1e-3):
-        raise AssertionError("counts: M + I emissions do not sum to q_len")
-    err = float((got - want).abs().max())
-    ms = cuda_time(lambda: pg.phmm_counts(*args), reps=5)
-    plain_ms = cuda_time(lambda: pg.phmm_counts_plain(*args), reps=1,
-                         warmup=0)
-    moved = nbytes(*args) + got.numel() * 4
-    flops = 60.0 * W * float((q_lens + 1).sum())
-    t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_OPS_PER_S * 1e3
-    Qc = qs.shape[1]
-    log(f"counts B=40 Q={Qc} W={W}: max abs err {err:.3g}, kernel "
-        f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
-        f"{max(t_bytes, t_ops):.3f} ms")
-    del args, got, want, batch
-    torch.cuda.empty_cache()
+    res = []
+    for label, short in COUNTS_SHAPES:
+        if not wide and label.endswith("W1152"):
+            continue
+        tpl, qs, offs, q_lens, W = _pileup_pairs(rng, 40, 2000, 64, 128,
+                                                 short=short)
+        # model tuning's outlier filter (stages/model_tune.py): the band is
+        # sized from every read, the gradient taken on reads whose lk per
+        # base is above -2 (a read that starts 150 or more bases late is
+        # not: its paths open with a row-0 mass under float32's range)
+        lk = k1l.phmm_lk(*k1l.lk_inputs(qs, tpl, offs, q_lens, len(tpl), W,
+                                        device=dev), *k1l.tables8(params, dev))
+        keep = lk.cpu().numpy() / q_lens > -2.0
+        qs, offs, q_lens = qs[keep], offs[keep], q_lens[keep]
+        batch = pg.PairBatch(qs, tpl, offs, q_lens, len(tpl), W, device=dev)
+        args = pg.counts_args(pg.counts_prep(params, batch), W)
+        torch.cuda.synchronize()
+        got = pg.phmm_counts(*args)
+        again = pg.phmm_counts(*args)
+        want = pg.phmm_counts_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.allclose(got, want, rtol=1e-3, atol=1e-4):
+            raise AssertionError(f"counts {label}: kernel differs from plain "
+                                 f"(max {float((got - want).abs().max())})")
+        if not torch.equal(got, again):
+            raise AssertionError(f"counts {label}: two calls differ")
+        # each query base is emitted by exactly one M or I state
+        emitted = got[:, 9:].sum(1)
+        if not torch.allclose(emitted, batch.q_lens.to(torch.float32),
+                              rtol=1e-3):
+            raise AssertionError(f"counts {label}: M + I emissions do not "
+                                 f"sum to q_len")
+        err = float((got - want).abs().max())
+        ms = cuda_time(lambda: pg.phmm_counts(*args), reps=5)
+        plain_ms = cuda_time(lambda: pg.phmm_counts_plain(*args), reps=1,
+                             warmup=0)
+        moved = nbytes(*args) + got.numel() * 4
+        flops = 60.0 * W * float((q_lens + 1).sum())
+        t_bytes = moved / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_OPS_PER_S * 1e3
+        Qc = qs.shape[1]
+        log(f"counts {label} B={len(qs)} Q={Qc} W={W}: max abs err {err:.3g}, "
+            f"bitwise equal in two calls, kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.1f} ms, bound {max(t_bytes, t_ops):.3f} ms")
+        res.append(dict(label=label, B=len(qs), Q=Qc, W=W, err=err, ms=ms,
+                        plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                        bound_by="bytes" if t_bytes >= t_ops
+                        else "operations"))
+        del args, got, again, want, batch
+        torch.cuda.empty_cache()
 
     # the gradient: counts kernel path vs autograd through the plain forward
     tpl, qs, offs, q_lens, Wg = _pileup_pairs(rng, 8, 240, 256, 64,
@@ -428,15 +596,20 @@ def check_counts(rng, dev):
         g_err = max(g_err, float((a - b).abs().max()))
     log(f"PairHMMLikelihood gradient B=8 Q={qs.shape[1]} W={Wg}: per-bp max "
         f"abs err vs autograd {g_err:.3g}")
-    return dict(name="phmm_counts (lk gradient)", route="cuda",
-                source="jtk_tpu_torch/csrc/phmm_counts.cu",
-                replaces="jtk_tpu/parallel/__init__.py:120 (jax.value_and_grad "
-                         "of the K1 forward; no Pallas kernel)",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=None, grad_max_abs_err_per_bp=g_err,
-                shape=dict(B=40, Q=Qc, W=W))
+    r0 = res[0]
+    row = dict(name="phmm_counts (lk gradient)", route="cuda",
+               source="jtk_tpu_torch/csrc/phmm_counts.cu",
+               replaces="jtk_tpu/parallel/__init__.py:120 (jax.value_and_grad "
+                        "of the K1 forward; no Pallas kernel)",
+               max_abs_err=max(r["err"] for r in res), ms=r0["ms"],
+               plain_ms=r0["plain_ms"], bound_ms=r0["bound_ms"],
+               bound_by=r0["bound_by"], library_ms=None,
+               grad_max_abs_err_per_bp=g_err,
+               shape=dict(B=r0["B"], Q=r0["Q"], W=r0["W"]))
+    for r in res[1:]:
+        row[f"at_{r['label']}"] = {k: r[k] for k in (
+            "B", "Q", "W", "ms", "plain_ms", "bound_ms")}
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -669,6 +842,127 @@ def _pipeline_in(rng, out):
                 hmm=hmm)
 
 
+# ---------------------------------------------------------------------------
+# each kernel at the main path's own launch shapes
+# ---------------------------------------------------------------------------
+
+
+def _random_pairs(rng, B, Q, W):
+    """B reads of up to Q bases against their own random templates, each
+    reachable in a band of W (q_len within W/4 of t_len): qs (B, Q),
+    templates (B, T), offsets, q_lens, t_lens."""
+    import numpy as np
+
+    from jtk_tpu_torch.io import sim
+    from jtk_tpu_torch.ops.banded_align import linear_offsets
+
+    T = Q + 32
+    qs = np.full((B, Q), 4, np.int8)
+    rs = np.full((B, T), 4, np.int8)
+    q_lens = np.zeros(B, np.int64)
+    t_lens = np.zeros(B, np.int64)
+    offs = np.zeros((B, Q + 1), np.int64)
+    for b in range(B):
+        t = sim.random_genome(rng, Q - int(rng.integers(0, max(1, min(
+            W // 4, Q // 8)))))
+        r = sim.noisy_read(rng, t, 0.05)[:Q]
+        if len(t) - len(r) >= W - 2:   # keep the end reachable
+            r = np.concatenate([r, t[len(r):]])[:Q]
+        qs[b, :len(r)], rs[b, :len(t)] = r, t
+        q_lens[b], t_lens[b] = len(r), len(t)
+        offs[b] = linear_offsets(len(r), len(t), Q, W)
+    return qs, rs, offs, q_lens, t_lens
+
+
+def _shape_call(kind, rng, dev, B, Q, W):
+    """A call of kernel ``kind`` (a launch counter's name) at launch shape
+    (B, Q, W) on synthetic pairs of that shape, and its bound (ms): the
+    inputs read and outputs written once over the memory rate, or the
+    operations of the rows these pairs need over the fp32 rate."""
+    import torch
+
+    from jtk_tpu_torch.ops import edit_dp as k3
+    from jtk_tpu_torch.ops import phmm_grad as pg
+    from jtk_tpu_torch.ops import phmm_lk as k1l
+    from jtk_tpu_torch.ops import phmm_tables as pt
+    from jtk_tpu_torch.ops.phmm import PHMMParams
+
+    def bound(args, out_bytes, ops):
+        return max((nbytes(*args) + out_bytes) / HBM_BYTES_PER_S,
+                   ops / FP32_OPS_PER_S) * 1e3
+
+    params = PHMMParams.default(dev)
+    if kind == "edit_dp":
+        # K3 runs every one of its Q rows: random codes, a diagonal band
+        g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+        T = Q + W
+        q = torch.randint(0, 4, (B, Q), generator=g, device=dev)
+        r = torch.randint(0, 4, (B, T), generator=g, device=dev)
+        ii = torch.arange(Q + 1, device=dev)
+        off = (ii - W // 4).clamp(0, T - W + 1)[None].expand(B, Q + 1)
+        tl = torch.full((B,), T, dtype=torch.int64, device=dev)
+        args = k3.k3_inputs(q, r, off, tl, W, "infix") + (
+            torch.full((B,), Q, dtype=torch.int32, device=dev),
+            tl.to(torch.int32))
+        return (lambda: k3.edit_dp(*args),
+                bound(args, B * W * (2 * Q + 4), 20.0 * B * Q * W))
+    qs, rs, offs, q_lens, t_lens = _random_pairs(rng, B, Q, W)
+    rows = float(q_lens.sum())
+    if kind == "phmm_lk":
+        args = k1l.lk_inputs(qs, rs, offs, q_lens, t_lens, W, device=dev)
+        tabs = k1l.tables8(params, dev)
+        return (lambda: k1l.phmm_lk(*args, *tabs),
+                bound(args + tabs, 4 * B, 40.0 * W * rows))
+    prep = pt.prep_tables_inputs(qs, rs, offs, q_lens, t_lens, params, W,
+                                 device=dev)
+    if kind == "phmm_counts":
+        args = pg.counts_args(prep, W)
+        return (lambda: pg.phmm_counts(*args),
+                bound(args, 4 * B * pg.N_COUNTS, 60.0 * W * (rows + B)))
+    fwd_args, bwd_args, _aux = pt.kernel_inputs(prep, W)
+    args = fwd_args if kind == "fwd_tables" else bwd_args
+    kern = pt.fwd_tables if kind == "fwd_tables" else pt.bwd_tables
+    return (lambda: kern(*args),
+            bound(args, 4 * B * Q * (3 * W + 1), 40.0 * W * rows))
+
+
+def time_path_shapes(rng, dev, counters, top=3):
+    """Time each kernel once at the main path's most-launched shapes (the
+    ``top`` of each launch counter) and K3 at its longest-Q shape, beside
+    each shape's bound, and print launches x time and launches x (time -
+    bound).  The counters keep the path's counts: these calls are not the
+    path's.  Returns {kernel: [[B, Q, W], launches, ms, bound_ms]}."""
+    import torch
+
+    saved = [(c.count, c.shapes.copy()) for c in counters]
+    out = {}
+    for c, (count, shapes) in zip(counters, saved):
+        picked = [s for s, _n in shapes.most_common(top)]
+        if c.name == "edit_dp" and shapes:
+            longest = max(shapes, key=lambda s: (s[1], shapes[s]))
+            if longest not in picked:
+                picked.append(longest)
+        rows = []
+        for shape in picked:
+            fn, bound_ms = _shape_call(c.name, rng, dev, *shape)
+            rows.append([list(shape), shapes[shape], cuda_time(fn, reps=3),
+                         bound_ms])
+            del fn
+            torch.cuda.empty_cache()
+        total = sum(n * ms for _s, n, ms, _b in rows)
+        gap = sum(n * (ms - b) for _s, n, ms, b in rows)
+        covered = sum(n for _s, n, _ms, _b in rows)
+        log(f"path (b) {c.name} at its shapes: " + ", ".join(
+            f"{tuple(s)} {n} x {ms:.3f} ms (bound {b:.4f})"
+            for s, n, ms, b in rows)
+            + f"; launches x time {total:.1f} ms, x (time - bound) "
+            f"{gap:.1f} ms, over {covered} of {count} launches")
+        out[c.name] = rows
+    for c, (count, shapes) in zip(counters, saved):
+        c.count, c.shapes = count, shapes
+    return out
+
+
 def truth_failures(name, res, min_len):
     out = []
     if not res["mean_ari"] > 0.6:
@@ -684,6 +978,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="build and check the kernels, drive no path")
+    ap.add_argument("--skip-wide", action="store_true",
+                    help="leave out the band widths above 1024 (to time a "
+                         "tree whose kernels refuse them)")
     opts = ap.parse_args()
     try:
         import torch
@@ -715,32 +1012,37 @@ def main() -> int:
     t0 = time.time()
     cuda_build.build(["edit_dp", "phmm_tables", "phmm_lk", "phmm_counts"])
     log(f"build: {time.time() - t0:.1f} s")
-    # the table kernels keep a thread's band lanes in registers at every
-    # geometry (ops/phmm_tables.py::tables_geometry): a spill breaks that
+    # the row-wavefront kernels keep a thread's band lanes in registers at
+    # every geometry (ops/phmm_tables.py::tables_geometry), and the counts
+    # kernel its 45 accumulators: a spill of any of them breaks that
     spills = []
     for name, text in cuda_build.BUILD_LOG.items():
         fn = ""
         for line in text.splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:   # _Z17fwd_tables_kernelILi4ELi1EEv... -> fwd_tables_kernel<4,1>
-                fn = re.sub(r"^_Z\d+(\w+?)ILi(\d+)ELi(\d+)E.*$", r"\1<\2,\3>",
-                            m.group(1))
+                fn = m.group(1)
+                mm = re.match(r"_Z\d+([A-Za-z_]\w*?)I((?:L[ib]\d+E)+)E", fn)
+                if mm:
+                    fn = (mm.group(1) + "<" + ",".join(
+                        re.findall(r"L[ib](\d+)E", mm.group(2))) + ">")
             elif "registers" in line or "spill" in line:
                 log(f"ptxas {name} {fn}: {line.strip()}")
                 m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                               r"loads", line)
-                if name == "phmm_tables" and m and (int(m.group(1))
-                                                    or int(m.group(2))):
+                if name in NO_SPILL and m and (int(m.group(1))
+                                               or int(m.group(2))):
                     spills.append(f"{fn} spills ({line.strip()})")
 
     rng = np.random.default_rng(SEED)
-    rows = [check_k3(rng, dev)]
+    wide = not opts.skip_wide
+    rows = [check_k3(rng, dev, wide)]
     torch.cuda.empty_cache()
     rows += check_tables(rng, dev)
     torch.cuda.empty_cache()
-    rows.append(check_lk(rng, dev))
+    rows.append(check_lk(rng, dev, wide))
     torch.cuda.empty_cache()
-    rows.append(check_counts(rng, dev))
+    rows.append(check_counts(rng, dev, wide))
     torch.cuda.empty_cache()
     log(f"kernel checks done at {time.time() - t_all:.1f} s")
     if opts.kernels_only:
@@ -780,6 +1082,8 @@ def main() -> int:
         log(f"path (b) {c.name} launches by shape (B, Q, W), top 5 of "
             f"{len(c.shapes)}: " + ", ".join(f"{s}={n}" for s, n in top))
         res_b["launch_shapes_top5"][c.name] = [[list(s), n] for s, n in top]
+    res_b["shape_times"] = time_path_shapes(np.random.default_rng(SEED + 3),
+                                            dev, counters)
     for strand, h in res_b["hmm"].items():
         log(f"fitted {strand} HMM: trans {h['trans']}, mat_emit diagonal "
             f"{h['mat_emit_diag']}")

@@ -2,12 +2,13 @@
 
 Counterpart of ``jtk_tpu/ops/pallas_k3.py``.  :func:`edit_dp` is the kernel
 wrapper: on a CUDA tensor it launches the hand-written kernel
-``csrc/edit_dp.cu``; on a CPU tensor it runs :func:`edit_dp_plain`, the same
-function in plain PyTorch.  Around it sit the glue of
-``pallas_extend_hostwin`` (band offsets, window setup, score/end selection,
-the batched traceback walk and the result packing: insertion bitmask,
-top-``DEL_TOPK`` deletion runs, 6-column meta) and the shared entry point
-:func:`k3_batch` used by every alignment in the port.
+``csrc/edit_dp.cu`` (W up to MAX_W, :func:`edit_dp_geometry`); on a CPU
+tensor it runs :func:`edit_dp_plain`, the same function in plain PyTorch.
+Around it sit the glue of ``pallas_extend_hostwin`` (band offsets, window
+setup, score/end selection, the batched traceback walk and the result
+packing: insertion bitmask, top-``DEL_TOPK`` deletion runs, 6-column meta)
+and the shared entry point :func:`k3_batch` used by every alignment in the
+port.
 
 Band conventions (as in the reference): offsets have unit increments,
 ``rc[k] = r[j-1]`` for ``j = off_i + k``, rows past ``q_len`` are frozen.
@@ -24,10 +25,26 @@ from .cuda_build import Launches, check, launch
 
 INF = 1 << 30
 DEL_TOPK = 192
+MAX_W = 8192            # ptr | run << 2 with run < W fits an int16
+MAX_LANES = 8           # band lanes a thread keeps (1, 2, 4 or 8)
+MAX_THREADS = 1024      # threads of the one block a pair has
 # (Q, B, W) int16 stream of one launch stays under 2^30 cells (2 GB)
 STREAM_CELLS = 1 << 30
 
 LAUNCHES = Launches("edit_dp")
+
+
+def edit_dp_geometry(W: int) -> tuple[int, int]:
+    """Launch geometry of the K3 kernel for band width ``W``: (lanes per
+    thread, threads per block).  A thread takes the fewest lanes (a power
+    of two up to MAX_LANES) that leave the band at most MAX_THREADS
+    threads, rounded up to whole warps."""
+    if not 1 <= W <= MAX_W:
+        raise ValueError(f"edit_dp: band width {W} outside 1..{MAX_W}")
+    lanes = 1
+    while -(-W // lanes) > MAX_THREADS:
+        lanes *= 2
+    return lanes, -(-W // (32 * lanes)) * 32
 
 
 def edit_dp_plain(e0, qs, shifts, inc, rc0, j0, qlen, tlen):
@@ -89,8 +106,7 @@ def edit_dp(e0, qs, shifts, inc, rc0, j0, qlen, tlen):
         return out, last
     B, W = e0.shape
     Q = qs.shape[1]
-    if not 1 <= W <= 1024:
-        raise ValueError(f"edit_dp: band width {W} outside 1..1024")
+    lanes, _threads = edit_dp_geometry(W)
     for t, name, shape in ((e0, "e0", (B, W)), (rc0, "rc0", (B, W)),
                            (j0, "j0", (B, W)), (qs, "qs", (B, Q)),
                            (shifts, "shifts", (B, Q)), (inc, "inc", (B, Q)),
@@ -99,7 +115,7 @@ def edit_dp(e0, qs, shifts, inc, rc0, j0, qlen, tlen):
     out = torch.empty((Q, B, W), dtype=torch.int16, device=e0.device)
     last = torch.empty((B, W), dtype=torch.int32, device=e0.device)
     launch("edit_dp", "edit_dp_launch", e0, qs, shifts, inc, rc0, j0, qlen,
-           tlen, out, last, B, Q, W)
+           tlen, out, last, B, Q, W, lanes)
     LAUNCHES.add((B, Q, W))
     return out, last
 

@@ -11,7 +11,9 @@ paths.  :class:`PairHMMLikelihood` is the ``torch.autograd.Function``:
 * backward: the K1 forward and backward tables (:mod:`.phmm_tables`, strand
   0, one parameter set) and the counts kernel of ``csrc/phmm_counts.cu``
   (:func:`phmm_counts`; :func:`phmm_counts_plain` on CPU tensors), scaled by
-  ``grad_output``.
+  ``grad_output``.  The kernel is a reduction over (pair, row strip, band
+  chunk) units with a fixed-order second pass: no float atomics, so the
+  counts are the same bits from run to run.
 
 Per-pair counts are (B, 45) f32: transitions ``[from, to]`` (9, states
 M=0, I=1, D=2, row 0's M->D / D->D chain and the in-row D terms
@@ -26,10 +28,21 @@ import torch
 from .cuda_build import Launches, check, launch
 from .phmm import PHMMParams
 from .phmm_lk import lk_inputs, phmm_lk, tables8
-from .phmm_tables import _shl3, _shr3, prep_tables_inputs, tables_batch
+from .phmm_tables import (MAX_W, _shl3, _shr3, prep_tables_inputs,
+                          tables_batch)
 
 LAUNCHES = Launches("phmm_counts")
 N_COUNTS = 9 + 16 + 20
+COUNTS_STRIP = 16       # rows of a unit of the counts kernel
+COUNTS_CHUNK = 128      # band lanes of a unit: 32 threads x 4 lanes
+
+
+def _half_weight(c, live):
+    """exp(c / 2) where ``live``, else 0: a cell's weight exp(fcum + bcum -
+    lk) goes half to its forward and half to its backward value.  Whole,
+    it passes float32's range (e^88) where f * b is tiny, as at row 0 of a
+    read that starts late in its template, and 0 * inf gave NaN counts."""
+    return torch.where(live, torch.exp(torch.clamp(0.5 * c, max=88.0)), 0.0)
 
 
 def phmm_counts_plain(fM, fI, fD, bM, bI, bD, fcum, bcum, rcs, qs, shifts,
@@ -39,13 +52,12 @@ def phmm_counts_plain(fM, fI, fD, bM, bI, bD, fcum, bcum, rcs, qs, shifts,
     dev = fM.device
     rows = torch.arange(Q1, device=dev)
     ql = qlen.to(torch.int64)[:, None]
-    s_row = torch.where(rows[None] <= ql,
-                        torch.exp(fcum + bcum - lk[:, None]), 0.0)
-    s_in = torch.where(rows[None, 1:] <= ql,
-                       torch.exp(fcum[:, :-1] + bcum[:, 1:] - lk[:, None]),
-                       0.0)[..., None]
+    h_row = _half_weight(fcum + bcum - lk[:, None], rows[None] <= ql)
+    h_in = _half_weight(fcum[:, :-1] + bcum[:, 1:] - lk[:, None],
+                        rows[None, 1:] <= ql)[..., None]
+    h_cell = h_row[..., None]
     one = (shifts == 1)[..., None]
-    prev = [x[:, :-1] for x in (fM, fI, fD)]
+    prev = [x[:, :-1] * h_in for x in (fM, fI, fD)]
     Xd = [torch.where(one, x, _shr3(x)) for x in prev]
     Xu = [torch.where(one, _shl3(x), x) for x in prev]
     qc = qs.to(torch.int64)
@@ -54,17 +66,18 @@ def phmm_counts_plain(fM, fI, fD, bM, bI, bD, fcum, bcum, rcs, qs, shifts,
     rc = rcs[:, 1:].to(torch.int64)
     em = me.reshape(-1)[rc * 8 + qc[..., None]]
     ei = ie.reshape(-1)[qp * 8 + qc][..., None]
-    gM = em * bM[:, 1:] * s_in
-    gI = ei * bI[:, 1:] * s_in
-    gD = bD * s_row[..., None]
+    gM = em * bM[:, 1:] * h_in
+    gI = ei * bI[:, 1:] * h_in
+    gD = bD * h_cell
     t = trans
     cnt = []
     for a in range(3):
         cnt += [(t[a, 0] * Xd[a] * gM).sum((1, 2)),
                 (t[a, 1] * Xu[a] * gI).sum((1, 2)),
-                (t[a, 2] * _shr3((fM, fI, fD)[a]) * gD).sum((1, 2))]
-    post_m = fM[:, 1:] * bM[:, 1:] * s_row[:, 1:, None]
-    post_i = (fI[:, 1:] * bI[:, 1:] * s_row[:, 1:, None]).sum(2)
+                (t[a, 2] * _shr3((fM, fI, fD)[a] * h_cell) * gD).sum((1, 2))]
+    h1 = h_cell[:, 1:]
+    post_m = (fM[:, 1:] * h1) * (bM[:, 1:] * h1)
+    post_i = ((fI[:, 1:] * h1) * (bI[:, 1:] * h1)).sum(2)
     oh = torch.nn.functional.one_hot
     by_ref = torch.einsum("bqw,bqwa->bqa", post_m,
                           oh(rc.clamp(0, 4), 5)[..., :4].to(torch.float32))
@@ -76,6 +89,16 @@ def phmm_counts_plain(fM, fI, fD, bM, bI, bD, fcum, bcum, rcs, qs, shifts,
     return torch.cat([torch.stack(cnt, 1), me_c, ie_c], 1)
 
 
+def counts_geometry(W: int, Q: int) -> int:
+    """Units of the counts kernel a pair has at band width ``W`` and ``Q``
+    query rows: strips of ``COUNTS_STRIP`` rows of its Q + 1 times chunks
+    of ``COUNTS_CHUNK`` band lanes (one warp each, ``csrc/phmm_counts.cu``).
+    W runs up to the K1 tables' ``MAX_W``."""
+    if not 1 <= W <= MAX_W:
+        raise ValueError(f"phmm_counts: band width {W} outside 1..{MAX_W}")
+    return -(-(Q + 1) // COUNTS_STRIP) * -(-W // COUNTS_CHUNK)
+
+
 def phmm_counts(fM, fI, fD, bM, bI, bD, fcum, bcum, rcs, qs, shifts, qlen,
                 lk, trans, me, ie):
     """Per-pair expected counts from the stitched K1 tables.
@@ -83,15 +106,16 @@ def phmm_counts(fM, fI, fD, bM, bI, bD, fcum, bcum, rcs, qs, shifts, qlen,
     fM..bD (B, Q+1, W) f32 scaled tables, fcum, bcum (B, Q+1) f32
     cumulative log scales, rcs (B, Q+1, W) int32 template chars per cell,
     qs, shifts (B, Q) int32, qlen (B,) int32, lk (B,) f32, trans, me, ie
-    (8, 8) f32 padded tables.  Returns (B, 45) f32."""
+    (8, 8) f32 padded tables.  Returns (B, 45) f32, the same bits from run
+    to run."""
     if fM.device.type == "cpu":
         return phmm_counts_plain(fM, fI, fD, bM, bI, bD, fcum, bcum, rcs, qs,
                                  shifts, qlen, lk, trans, me, ie)
     B, Q1, W = fM.shape
     Q = Q1 - 1
-    if not 1 <= W <= 1024:
-        raise ValueError(f"phmm_counts: band width {W} outside 1..1024")
+    units = counts_geometry(W, Q)
     f32, i32 = torch.float32, torch.int32
+    tables = (fM, fI, fD, bM, bI, bD, rcs)
     for t, name, dt, shape in (
             (fM, "fM", f32, (B, Q1, W)), (fI, "fI", f32, (B, Q1, W)),
             (fD, "fD", f32, (B, Q1, W)), (bM, "bM", f32, (B, Q1, W)),
@@ -102,9 +126,13 @@ def phmm_counts(fM, fI, fD, bM, bI, bD, fcum, bcum, rcs, qs, shifts, qlen,
             (lk, "lk", f32, (B,)), (trans, "trans", f32, (8, 8)),
             (me, "me", f32, (8, 8)), (ie, "ie", f32, (8, 8))):
         check(t, dt, shape, f"phmm_counts {name}")
+    # 16-byte loads of 4 lanes: rows of a multiple of 4 lanes, aligned bases
+    vec = W % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tables)
+    part = torch.empty((B, units, N_COUNTS), dtype=f32, device=fM.device)
     out = torch.empty((B, N_COUNTS), dtype=f32, device=fM.device)
     launch("phmm_counts", "phmm_counts_launch", fM, fI, fD, bM, bI, bD, fcum,
-           bcum, rcs, qs, shifts, qlen, lk, trans, me, ie, out, B, Q, W)
+           bcum, rcs, qs, shifts, qlen, lk, trans, me, ie, part, out, B, Q, W,
+           units, int(vec))
     LAUNCHES.add((B, Q, W))
     return out
 

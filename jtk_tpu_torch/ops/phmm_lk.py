@@ -3,9 +3,10 @@
 Counterpart of the K1l half of ``jtk_tpu/ops/pallas_phmm.py``
 (``_phmm_fwd_kernel``, launched by ``_pallas_fwd`` and wrapped by
 ``pallas_likelihood_pileup``).  :func:`phmm_lk` is the kernel wrapper: on
-CUDA tensors it launches the hand-written kernel of ``csrc/phmm_lk.cu``; on
-CPU tensors it runs :func:`phmm_lk_plain`, the same function in plain
-PyTorch.  :func:`lk_inputs` builds its arguments on the device.
+CUDA tensors it launches the hand-written kernel of ``csrc/phmm_lk.cu`` (the
+K1 forward-tables kernel's row wavefront and launch geometry, without the
+tables); on CPU tensors it runs :func:`phmm_lk_plain`, the same function in
+plain PyTorch.  :func:`lk_inputs` builds its arguments on the device.
 
 The recursion is ``jtk_tpu/ops/phmm.py::forward_banded``'s: M/I/D update,
 the in-row Del chain ``D[k] = c[k] + tdd * D[k-1]``, each row rescaled by
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 from .cuda_build import Launches, check, launch
-from .phmm_tables import EPS, _linrec, _shl, _shr
+from .phmm_tables import EPS, _linrec, _shl, _shr, tables_geometry
 
 LAUNCHES = Launches("phmm_lk")
 
@@ -137,14 +138,14 @@ def phmm_lk(qs, shifts, inc, rc0, j0, qlen, tlen, trans, me, ie):
 
     qs, shifts, inc (B, Q) int32; rc0, j0 (B, W) int32; qlen, tlen (B,)
     int32; trans, me, ie (8, 8) f32 padded tables (:func:`tables8`).
-    Returns (B,) f32."""
+    W runs up to ``MAX_W`` (the launch geometry of the K1 table kernels,
+    :func:`~.phmm_tables.tables_geometry`).  Returns (B,) f32."""
     if rc0.device.type == "cpu":
         return phmm_lk_plain(qs, shifts, inc, rc0, j0, qlen, tlen, trans, me,
                              ie)
     B, W = rc0.shape
     Q = qs.shape[1]
-    if not 1 <= W <= 1024:
-        raise ValueError(f"phmm_lk: band width {W} outside 1..1024")
+    geometry = tables_geometry(W, "phmm_lk")
     f32, i32 = torch.float32, torch.int32
     for t, name, dt, shape in (
             (qs, "qs", i32, (B, Q)), (shifts, "shifts", i32, (B, Q)),
@@ -154,7 +155,8 @@ def phmm_lk(qs, shifts, inc, rc0, j0, qlen, tlen, trans, me, ie):
             (me, "me", f32, (8, 8)), (ie, "ie", f32, (8, 8))):
         check(t, dt, shape, f"phmm_lk {name}")
     out = torch.empty(B, dtype=f32, device=rc0.device)
+    emis = torch.empty((B, 5, Q), dtype=f32, device=rc0.device)
     launch("phmm_lk", "phmm_lk_launch", qs, shifts, inc, rc0, j0, qlen, tlen,
-           trans, me, ie, out, B, Q, W)
+           trans, me, ie, emis, out, B, Q, W, *geometry)
     LAUNCHES.add((B, Q, W))
     return out

@@ -29,15 +29,16 @@ MAX_W = 2048            # 8 x 256, the widest band ``band_buckets`` reaches
 MAX_LANES = 4           # band lanes a thread keeps in registers
 
 
-def tables_geometry(W: int) -> tuple[int, int, int]:
-    """Launch geometry of the table kernels for band width ``W``:
-    (lanes per thread, warps per pair, pairs per block).  A thread holds
+def tables_geometry(W: int, kernel: str = "tables") -> tuple[int, int, int]:
+    """Launch geometry of the table kernels, and of K1l (``csrc/phmm_lk.cu``),
+    for band width ``W``: (lanes per thread, warps per pair, pairs per
+    block).  A thread holds
     up to MAX_LANES lanes (the cost of a row is the instructions one
     thread issues, so wide bands take more warps, 1 to 16, rather than more
     lanes); a block holds 4 warps, or one pair of more.  Both counts are
     powers of two (the kernels are built for those)."""
     if not 1 <= W <= MAX_W:
-        raise ValueError(f"tables: band width {W} outside 1..{MAX_W}")
+        raise ValueError(f"{kernel}: band width {W} outside 1..{MAX_W}")
     lanes = 1
     while lanes < MAX_LANES and 32 * lanes < W:
         lanes *= 2

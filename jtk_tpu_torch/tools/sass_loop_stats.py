@@ -3,10 +3,13 @@
 
     cuobjdump -sass jtk_tpu_torch/_build/cuda/libphmm_tables-*.so > t.sass
     python3 -m jtk_tpu_torch.tools.sass_loop_stats t.sass [kernel-substring]
+        [anchor]
 
 For every function in the dump, the row loop is taken as the shortest
-backward branch that encloses the function's first butterfly shuffle
-(``SHFL.BFLY``, the row scale's reduction).  For that loop it prints the
+backward branch that encloses the function's first ``anchor`` instruction
+(default ``SHFL.BFLY``, the row scale's reduction in the row wavefronts;
+``BAR.SYNC`` for K3's block barriers, ``SHFL.IDX`` for the counts
+kernel's row streams).  For that loop it prints the
 instruction count, the sum of the stall counts the compiler encoded in the
 control bits (bits 41-44 of the second 64-bit word, the Volta-family
 layout), and the number of instructions that wait on a scoreboard.  A
@@ -23,7 +26,7 @@ INS = re.compile(r"\s+/\*([0-9a-f]{4})\*/\s+(.*?)\s*;?\s*/\* (0x[0-9a-f]+) \*/")
 WORD = re.compile(r"/\* (0x[0-9a-f]+) \*/")
 
 
-def loop_stats(body: str):
+def loop_stats(body: str, anchor: str = "SHFL.BFLY"):
     lines = body.split("\n")
     ins = []
     for i, line in enumerate(lines):
@@ -33,10 +36,10 @@ def loop_stats(body: str):
             if hi:
                 ins.append((int(m.group(1), 16), m.group(2),
                             int(hi.group(1), 16)))
-    bfly = [a for a, t, _ in ins if "SHFL.BFLY" in t]
-    if not bfly:
+    hits = [a for a, t, _ in ins if anchor in t]
+    if not hits:
         return None
-    first = min(bfly)
+    first = min(hits)
     back = []
     for a, t, _ in ins:
         m = re.search(r"BRA 0x([0-9a-f]+)", t)
@@ -58,11 +61,12 @@ def main() -> int:
     with open(sys.argv[1]) as f:
         text = f.read()
     pick = sys.argv[2] if len(sys.argv) > 2 else ""
+    anchor = sys.argv[3] if len(sys.argv) > 3 else "SHFL.BFLY"
     for body in re.split(r"\n\s*Function : ", text)[1:]:
         name = body.split("\n")[0].strip()
         if pick not in name:
             continue
-        st = loop_stats(body)
+        st = loop_stats(body, anchor)
         if st:
             print(f"{name[:60]}: {st[0]} instructions, {st[1]} stall "
                   f"cycles, {st[2]} scoreboard waits a row")

@@ -19,7 +19,7 @@ def _k3_inputs(rng, B=48, clen=700, W=256, margin=120):
     from jtk_tpu_torch.io import sim
     from jtk_tpu_torch.ops import edit_dp as k3
     from jtk_tpu_torch.ops.banded_align import diagonal_offsets
-    Q = 768
+    Q = max(768, (clen + 127) // 64 * 64)
     T = clen + 2 * margin + 64
     qs = np.full((B, Q), 4, np.int8)
     rs = np.full((B, T), 4, np.int8)
@@ -46,10 +46,15 @@ def _k3_inputs(rng, B=48, clen=700, W=256, margin=120):
     return args + (t(q_lens, torch.int32), tl.to(torch.int32))
 
 
-def test_edit_dp_kernel_matches_plain():
+@pytest.mark.parametrize("W,B,clen", [(256, 48, 700), (1152, 6, 1300),
+                                      (1500, 4, 1650), (2048, 4, 2300)],
+                         ids=["W256", "W1152-2-lanes", "W1500-2-lanes-masked",
+                              "W2048-2-lanes"])
+def test_edit_dp_kernel_matches_plain(W, B, clen):
+    """K3 bit-exact at one lane a thread (W 256) and at two (W > 1024)."""
     require_cuda()
     from jtk_tpu_torch.ops import edit_dp as k3
-    args = _k3_inputs(np.random.default_rng(3))
+    args = _k3_inputs(np.random.default_rng(3 + W), B=B, clen=clen, W=W)
     n0 = k3.LAUNCHES.count
     got = k3.edit_dp(*args)
     assert k3.LAUNCHES.count == n0 + 1
@@ -134,18 +139,70 @@ def _pileup_cuda(rng, B=16, tlen=600, W=128):
     return tpl, qs, offs, q_lens, W
 
 
-def test_lk_kernel_matches_plain():
+def _pairs_cuda(rng, B, W, with_n=False):
+    """B reads against their own templates, band exactly W (as the gain
+    calibration launches K1l at W 64): qs, templates, offsets, lengths."""
+    from jtk_tpu_torch.io import sim
+    from jtk_tpu_torch.ops.banded_align import linear_offsets
+    T = max(200, W + 100)
+    Q = ((T + 40 + 63) // 64) * 64
+    qs = np.full((B, Q), 4, np.int8)
+    rs = np.full((B, T), 4, np.int8)
+    q_lens = np.zeros(B, np.int64)
+    t_lens = np.zeros(B, np.int64)
+    offs = np.zeros((B, Q + 1), np.int64)
+    for b in range(B):
+        t = sim.random_genome(rng, T - int(rng.integers(0, 20)))
+        r = sim.noisy_read(rng, t, 0.05)[:Q]
+        rs[b, :len(t)], qs[b, :len(r)] = t, r
+        q_lens[b], t_lens[b] = len(r), len(t)
+        offs[b] = linear_offsets(len(r), len(t), Q, W)
+    if with_n:
+        qs[1, 30] = 4   # an in-read N emits with probability 0
+    return qs, rs, offs, q_lens, t_lens
+
+
+@pytest.mark.parametrize("W,B,with_n", [
+    (64, 24, False), (128, 13, False), (130, 6, False), (256, 9, False),
+    (1152, 5, False), (128, 8, True)],
+    ids=["W64", "W128", "W130-masked", "W256", "W1152", "W128-N"])
+def test_lk_kernel_matches_plain(W, B, with_n):
+    """K1l at one warp a pair with 2 and 4 lanes a thread (W 64, 128; four
+    and three pairs a block), two warps (W 130, most lanes of the second
+    masked; 256), sixteen (1152), and a read with an N."""
     require_cuda()
     from jtk_tpu_torch.ops import phmm_lk as k1l
     from jtk_tpu_torch.ops.phmm import PHMMParams
-    tpl, qs, offs, q_lens, W = _pileup_cuda(np.random.default_rng(5))
-    args = k1l.lk_inputs(qs, tpl, offs, q_lens, len(tpl), W, device="cuda")
+    qs, rs, offs, q_lens, t_lens = _pairs_cuda(np.random.default_rng(5 + W),
+                                               B, W, with_n)
+    args = k1l.lk_inputs(qs, rs, offs, q_lens, t_lens, W, device="cuda")
     tabs = k1l.tables8(PHMMParams.default("cuda"), "cuda")
     n0 = k1l.LAUNCHES.count
     got = k1l.phmm_lk(*args, *tabs)
     assert k1l.LAUNCHES.count == n0 + 1
     want = k1l.phmm_lk_plain(*args, *tabs)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-2)
+    if with_n:
+        assert float(got[1]) < float(got[0]) - 1000
+
+
+@pytest.mark.parametrize("W", [130, 256, 1152])
+def test_counts_kernel_wide_band_matches_plain_bitwise_repeatable(W):
+    """The counts kernel at two and nine band chunks a row (W 130: rows of
+    a width that is not a multiple of 4, so 4-byte loads), against its
+    plain version, and the same bits from two calls."""
+    require_cuda()
+    from jtk_tpu_torch.ops import phmm_grad as pg
+    from jtk_tpu_torch.ops.phmm import PHMMParams
+    qs, rs, offs, q_lens, t_lens = _pairs_cuda(np.random.default_rng(W), 6,
+                                               W)
+    batch = pg.PairBatch(qs, rs, offs, q_lens, t_lens, W, device="cuda")
+    args = pg.counts_args(pg.counts_prep(PHMMParams.default("cuda"), batch),
+                          W)
+    got = pg.phmm_counts(*args)
+    assert torch.equal(got, pg.phmm_counts(*args))
+    torch.testing.assert_close(got, pg.phmm_counts_plain(*args), rtol=1e-3,
+                               atol=1e-4)
 
 
 def test_counts_kernel_matches_plain_and_gradient_matches_autograd():
