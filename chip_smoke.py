@@ -9,11 +9,12 @@
 3. holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (the K1 tables at polish's B 192 / W 128 and W 512
    and model tuning's B 40 / W 128 and W 256; K1l also at the gain
-   calibration's B 256 / W 64 and with an N; K3 at the mapper's B 2048)
-   and at the band widths above 1024 that the pipeline can reach (K3 up to
-   8192, K1l and counts up to 2048), and times both with CUDA events,
-   each beside its bound: K3 bit-exact (stream, last row, decoded
-   CIGARs); the K1 tables within rtol 2e-3 / atol 1e-5 (tables) and rtol
+   calibration's B 256 / W 64 and with an N; counts also with a read that
+   starts 22 bases late; K3 at the mapper's B 2048, and timed at path
+   (b)'s own K3 shapes) and then, in a last step, at the band widths above
+   1024 that the pipeline can reach (K3 up to 8192, K1l and counts up to
+   2048), and times both with CUDA events, each beside its bound: K3
+   bit-exact (stream, last row, decoded CIGARs); the K1 tables within rtol 2e-3 / atol 1e-5 (tables) and rtol
    1e-4 / atol 2e-2 (cumulative log scales); K1l's lk within rtol 1e-4 /
    atol 2e-2 of its plain version and of K1f's lk; the counts kernel
    within rtol 1e-3 / atol 1e-4 and bitwise equal in two calls; the
@@ -39,13 +40,13 @@
 7. prints the kernels line, the card line, then {"ok": true, "device": ...}
    as the last line.  Any failure exits non-zero without the last line.
 
-``--kernels-only`` stops after step 3 (a quick build-and-check run);
-``--skip-wide`` leaves out the widths above 1024 (for a tree whose kernels
-refuse them).  The
+``--kernels-only`` stops after step 3 (a quick build-and-check run).  The
 script runs the ``jtk_tpu_torch`` beside it, so a copy of it placed in an
 unpacked ``git archive`` of an earlier commit checks and times that
 commit's kernels at the same shapes: a kernel redesign is timed against
-its parent in one call.
+its parent in one call.  The checks stop at the first failure, after
+printing every line before it, and the widths above 1024 come last: a
+parent whose kernels refuse them has timed every main-path shape first.
 """
 
 from __future__ import annotations
@@ -129,12 +130,16 @@ def nbytes(*ts) -> int:
 # ---------------------------------------------------------------------------
 
 
-def check_k3(rng, dev, wide=True):
+# path (b)'s K3 shapes (B, Q, W): its two most-launched, with 12 launches
+# each, and its longest Q (dump_sam's whole reads), 8 launches each
+K3_PATH_SHAPES = ((29, 256, 128), (26, 2048, 768), (748, 2240, 640),
+                  (1, 59200, 512))
+
+
+def check_k3(rng, dev):
     """K3 at B = 2048 candidates, Q = 2048 chunk rows, W = 256 (the
-    mapper's production shapes), infix mode as in encode; then, unless
-    ``wide`` is False, at the band widths above 1024 that consensus tiles
-    of more than ~7 kb reach (W 1152, 2048, 4096, and 8192, the limit:
-    2, 4 and 8 lanes a thread), bit-exact each."""
+    mapper's production shapes), infix mode as in encode, bit-exact; then
+    its time at each of K3_PATH_SHAPES."""
     import numpy as np
     import torch
 
@@ -214,26 +219,42 @@ def check_k3(rng, dev, wide=True):
                library_ms=None, shape=dict(B=B, Q=Q, W=W))
     del packed_k, packed_p, kargs, args
     torch.cuda.empty_cache()
-    for Wd in (1152, 2048, 4096, 8192) if wide else ():
-        kargs = _k3_wide_inputs(rng, dev, W=Wd)
-        got, want = k3.edit_dp(*kargs), k3.edit_dp_plain(*kargs)
-        torch.cuda.synchronize()
-        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-            raise AssertionError(f"K3 W={Wd}: kernel stream/last row differ "
-                                 f"from plain")
-        Bw, Qw = kargs[1].shape
-        ms_w = cuda_time(lambda: k3.edit_dp(*kargs), reps=5)
-        plain_w = cuda_time(lambda: k3.edit_dp_plain(*kargs), reps=1,
-                            warmup=0)
-        bound_w = max((nbytes(*kargs) + nbytes(*got)) / HBM_BYTES_PER_S,
-                      20.0 * Bw * Qw * Wd / FP32_OPS_PER_S) * 1e3
-        log(f"K3 edit_dp B={Bw} Q={Qw} W={Wd}: bit-exact stream+last row, "
-            f"kernel {ms_w:.3f} ms, plain {plain_w:.1f} ms, bound "
-            f"{bound_w:.4f} ms")
-        row[f"at_W{Wd}"] = dict(B=Bw, Q=Qw, W=Wd, ms=ms_w, plain_ms=plain_w,
-                                bound_ms=bound_w)
-        del got, want, kargs
+    row["at_path"] = []
+    for shape in K3_PATH_SHAPES:
+        fn, bound_ms = _shape_call("edit_dp", rng, dev, *shape)
+        ms_s = cuda_time(fn, reps=5)
+        log(f"K3 edit_dp at path (b)'s {shape}: kernel {ms_s:.3f} ms, bound "
+            f"{bound_ms:.4f} ms")
+        row["at_path"].append(dict(zip("BQW", shape), ms=ms_s,
+                                   bound_ms=bound_ms))
+        del fn
+        torch.cuda.empty_cache()
     return row
+
+
+def _k3_wide(rng, dev, Wd):
+    """K3 at band width ``Wd`` > 1024 (consensus tiles of more than ~7 kb;
+    2, 4 or 8 lanes a thread), bit-exact; its times and bound."""
+    import torch
+
+    from jtk_tpu_torch.ops import edit_dp as k3
+
+    kargs = _k3_wide_inputs(rng, dev, W=Wd)
+    got, want = k3.edit_dp(*kargs), k3.edit_dp_plain(*kargs)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"K3 W={Wd}: kernel stream/last row differ "
+                             f"from plain")
+    Bw, Qw = kargs[1].shape
+    ms_w = cuda_time(lambda: k3.edit_dp(*kargs), reps=5)
+    plain_w = cuda_time(lambda: k3.edit_dp_plain(*kargs), reps=1, warmup=0)
+    bound_w = max((nbytes(*kargs) + nbytes(*got)) / HBM_BYTES_PER_S,
+                  20.0 * Bw * Qw * Wd / FP32_OPS_PER_S) * 1e3
+    log(f"K3 edit_dp B={Bw} Q={Qw} W={Wd}: bit-exact stream+last row, "
+        f"kernel {ms_w:.3f} ms, plain {plain_w:.1f} ms, bound "
+        f"{bound_w:.4f} ms")
+    return dict(B=Bw, Q=Qw, W=Wd, ms=ms_w, plain_ms=plain_w,
+                bound_ms=bound_w)
 
 
 def _k3_wide_inputs(rng, dev, W, B=8, margin=600):
@@ -419,77 +440,18 @@ def _calibration_pairs(rng, B=256, seq_len=100, W=64):
 
 
 # K1l's shapes: model tuning's pileups (B 40 reads against a ~2 kb chunk;
-# a short read widens the band to 256, and past 1024 to 1152 and 2048), a
-# read with an N, and the gain calibration (B 256, Q 128, W 64)
+# a short read widens the band to 256), a read with an N, and the gain
+# calibration (B 256, Q 128, W 64); above 1024 (the last step), a short
+# read's band of 1152 and 2048
 LK_SHAPES = (("model_tune", 0, False), ("model_tune_W256", 150, False),
-             ("model_tune_N", 0, True), ("model_tune_W1152", 1000, False),
-             ("model_tune_W2048", 1900, False), ("gain_calibration", 0, False))
+             ("model_tune_N", 0, True), ("gain_calibration", 0, False))
+LK_WIDE_SHAPES = (("model_tune_W1152", 1000, False),
+                  ("model_tune_W2048", 1900, False))
 
 
-def check_lk(rng, dev, wide=True):
-    """K1l at the shapes of LK_SHAPES (``wide`` False leaves out W > 1024)
-    against its plain version and, on reads without N, against K1f's lk;
-    both within rtol 1e-4 / atol 2e-2."""
-    import torch
-
-    from jtk_tpu_torch.ops import phmm_lk as k1l
-    from jtk_tpu_torch.ops import phmm_tables as pt
-    from jtk_tpu_torch.ops.phmm import PHMMParams
-
-    params = PHMMParams.default(dev)
-    tabs = k1l.tables8(params, dev)
-    res = []
-    for label, short, with_n in LK_SHAPES:
-        if not wide and label.endswith(("W1152", "W2048")):
-            continue
-        if label == "gain_calibration":
-            tpl, qs, offs, q_lens, tlen, W = _calibration_pairs(rng)
-        else:
-            tpl, qs, offs, q_lens, W = _pileup_pairs(rng, 40, 2000, 64, 128,
-                                                     short=short)
-            tlen = len(tpl)
-        if with_n:   # in-length N: emits with probability 0
-            qs[1, 30] = 4
-        B, Q = qs.shape
-        args = k1l.lk_inputs(qs, tpl, offs, q_lens, tlen, W, device=dev)
-        torch.cuda.synchronize()
-        got = k1l.phmm_lk(*args, *tabs)
-        want = k1l.phmm_lk_plain(*args, *tabs)
-        others = [(want, "plain")]
-        if not with_n:   # the tables prep scores an N as A
-            prep = pt.prep_tables_inputs(qs, tpl, offs, q_lens, tlen, params,
-                                         W, device=dev)
-            others.append((pt.tables_batch(prep, W, backward=False)[0],
-                           "K1f's lk"))
-        torch.cuda.synchronize()
-        err = 0.0
-        for other, what in others:
-            if not torch.allclose(got, other, rtol=1e-4, atol=2e-2):
-                raise AssertionError(
-                    f"K1l {label}: lk differs from {what} (max "
-                    f"{float((got - other).abs().max())})")
-            err = max(err, float((got - other).abs().max()))
-        if with_n and not float(got[1]) < float(got[0]) - 1000:
-            raise AssertionError("K1l: a read with an N is not improbable")
-        ms = cuda_time(lambda: k1l.phmm_lk(*args, *tabs), reps=5)
-        dev_ms = device_ms(lambda: k1l.phmm_lk(*args, *tabs))
-        dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.3f} ms"
-        plain_ms = cuda_time(lambda: k1l.phmm_lk_plain(*args, *tabs),
-                             reps=1, warmup=0)
-        moved = nbytes(*args, *tabs) + got.numel() * 4
-        # the loop stops at each pair's q_len: count the rows this data needs
-        flops = 40.0 * W * float(q_lens.sum())
-        t_bytes = moved / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_OPS_PER_S * 1e3
-        log(f"K1l phmm_lk {label} B={B} Q={Q} W={W}: max abs err {err:.3g} "
-            f"(vs {', '.join(w for _o, w in others)}), kernel {ms:.3f} ms "
-            f"(device {dev_txt}), plain {plain_ms:.1f} ms, bound "
-            f"{max(t_bytes, t_ops):.4f} ms")
-        res.append(dict(label=label, B=B, Q=Q, W=W, err=err, ms=ms,
-                        device_ms=dev_ms,
-                        plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-                        bound_by="bytes" if t_bytes >= t_ops
-                        else "operations"))
+def check_lk(rng, dev):
+    """K1l at the shapes of LK_SHAPES (see :func:`_lk_case`)."""
+    res = [_lk_case(rng, dev, *shape) for shape in LK_SHAPES]
     r0 = res[0]
     row = dict(name="phmm_lk (K1l)", route="cuda",
                source="jtk_tpu_torch/csrc/phmm_lk.cu",
@@ -499,21 +461,87 @@ def check_lk(rng, dev, wide=True):
                bound_by=r0["bound_by"], library_ms=None,
                shape=dict(B=r0["B"], Q=r0["Q"], W=r0["W"]))
     for r in res[1:]:
-        row[f"at_{r['label']}"] = {k: r[k] for k in (
-            "B", "Q", "W", "ms", "device_ms", "plain_ms", "bound_ms")}
+        row[f"at_{r['label']}"] = _at(r)
     return row
 
 
-COUNTS_SHAPES = (("model_tune", 0), ("model_tune_W256", 150),
-                 ("model_tune_W1152", 1000))
+def _at(r):
+    return {k: r[k] for k in ("B", "Q", "W", "ms", "device_ms", "plain_ms",
+                              "bound_ms") if k in r}
 
 
-def check_counts(rng, dev, wide=True):
-    """The counts kernel at model tune's shapes (B ~ 40, Q ~ 2.1 k, W 128,
-    256 and, unless ``wide`` is False, 1152) against its plain version
-    (rtol 1e-3 / atol 1e-4), bitwise equal in two calls; and the whole
-    PairHMMLikelihood gradient against torch.autograd through the plain
-    forward at B = 8, Q = 256."""
+def _lk_case(rng, dev, label, short, with_n):
+    """K1l on one layout against its plain version and, on reads without
+    N, against K1f's lk; both within rtol 1e-4 / atol 2e-2."""
+    import torch
+
+    from jtk_tpu_torch.ops import phmm_lk as k1l
+    from jtk_tpu_torch.ops import phmm_tables as pt
+    from jtk_tpu_torch.ops.phmm import PHMMParams
+
+    params = PHMMParams.default(dev)
+    tabs = k1l.tables8(params, dev)
+    if label == "gain_calibration":
+        tpl, qs, offs, q_lens, tlen, W = _calibration_pairs(rng)
+    else:
+        tpl, qs, offs, q_lens, W = _pileup_pairs(rng, 40, 2000, 64, 128,
+                                                 short=short)
+        tlen = len(tpl)
+    if with_n:   # in-length N: emits with probability 0
+        qs[1, 30] = 4
+    B, Q = qs.shape
+    args = k1l.lk_inputs(qs, tpl, offs, q_lens, tlen, W, device=dev)
+    torch.cuda.synchronize()
+    got = k1l.phmm_lk(*args, *tabs)
+    want = k1l.phmm_lk_plain(*args, *tabs)
+    others = [(want, "plain")]
+    if not with_n:   # the tables prep scores an N as A
+        prep = pt.prep_tables_inputs(qs, tpl, offs, q_lens, tlen, params, W,
+                                     device=dev)
+        others.append((pt.tables_batch(prep, W, backward=False)[0],
+                       "K1f's lk"))
+    torch.cuda.synchronize()
+    err = 0.0
+    for other, what in others:
+        if not torch.allclose(got, other, rtol=1e-4, atol=2e-2):
+            raise AssertionError(
+                f"K1l {label}: lk differs from {what} (max "
+                f"{float((got - other).abs().max())})")
+        err = max(err, float((got - other).abs().max()))
+    if with_n and not float(got[1]) < float(got[0]) - 1000:
+        raise AssertionError("K1l: a read with an N is not improbable")
+    ms = cuda_time(lambda: k1l.phmm_lk(*args, *tabs), reps=5)
+    dev_ms = device_ms(lambda: k1l.phmm_lk(*args, *tabs))
+    dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.3f} ms"
+    plain_ms = cuda_time(lambda: k1l.phmm_lk_plain(*args, *tabs), reps=1,
+                         warmup=0)
+    moved = nbytes(*args, *tabs) + got.numel() * 4
+    # the loop stops at each pair's q_len: count the rows this data needs
+    flops = 40.0 * W * float(q_lens.sum())
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_OPS_PER_S * 1e3
+    log(f"K1l phmm_lk {label} B={B} Q={Q} W={W}: max abs err {err:.3g} "
+        f"(vs {', '.join(w for _o, w in others)}), kernel {ms:.3f} ms "
+        f"(device {dev_txt}), plain {plain_ms:.1f} ms, bound "
+        f"{max(t_bytes, t_ops):.4f} ms")
+    return dict(label=label, B=B, Q=Q, W=W, err=err, ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+# the counts kernel's shapes: model tuning's pileups at W 128, with a read
+# that starts 22 bases late (row 0's cell weights pass float32's range
+# there; whole, they made its counts NaN), and with a short read that
+# widens the band to 256; above 1024 (the last step), 1152
+COUNTS_SHAPES = (("model_tune", 0), ("model_tune_late22", 22),
+                 ("model_tune_W256", 150))
+COUNTS_WIDE_SHAPES = (("model_tune_W1152", 1000),)
+
+
+def check_counts(rng, dev):
+    """The counts kernel at COUNTS_SHAPES (see :func:`_counts_case`); and
+    the whole PairHMMLikelihood gradient against torch.autograd through
+    the plain forward at B = 8, Q = 256."""
     import torch
 
     from jtk_tpu_torch.ops import phmm_grad as pg
@@ -521,58 +549,8 @@ def check_counts(rng, dev, wide=True):
     from jtk_tpu_torch.ops.phmm import PHMMParams
     from jtk_tpu_torch.parallel import params_to_theta, theta_to_params
 
+    res = [_counts_case(rng, dev, *shape) for shape in COUNTS_SHAPES]
     params = PHMMParams.default(dev)
-    res = []
-    for label, short in COUNTS_SHAPES:
-        if not wide and label.endswith("W1152"):
-            continue
-        tpl, qs, offs, q_lens, W = _pileup_pairs(rng, 40, 2000, 64, 128,
-                                                 short=short)
-        # model tuning's outlier filter (stages/model_tune.py): the band is
-        # sized from every read, the gradient taken on reads whose lk per
-        # base is above -2 (a read that starts 150 or more bases late is
-        # not: its paths open with a row-0 mass under float32's range)
-        lk = k1l.phmm_lk(*k1l.lk_inputs(qs, tpl, offs, q_lens, len(tpl), W,
-                                        device=dev), *k1l.tables8(params, dev))
-        keep = lk.cpu().numpy() / q_lens > -2.0
-        qs, offs, q_lens = qs[keep], offs[keep], q_lens[keep]
-        batch = pg.PairBatch(qs, tpl, offs, q_lens, len(tpl), W, device=dev)
-        args = pg.counts_args(pg.counts_prep(params, batch), W)
-        torch.cuda.synchronize()
-        got = pg.phmm_counts(*args)
-        again = pg.phmm_counts(*args)
-        want = pg.phmm_counts_plain(*args)
-        torch.cuda.synchronize()
-        if not torch.allclose(got, want, rtol=1e-3, atol=1e-4):
-            raise AssertionError(f"counts {label}: kernel differs from plain "
-                                 f"(max {float((got - want).abs().max())})")
-        if not torch.equal(got, again):
-            raise AssertionError(f"counts {label}: two calls differ")
-        # each query base is emitted by exactly one M or I state
-        emitted = got[:, 9:].sum(1)
-        if not torch.allclose(emitted, batch.q_lens.to(torch.float32),
-                              rtol=1e-3):
-            raise AssertionError(f"counts {label}: M + I emissions do not "
-                                 f"sum to q_len")
-        err = float((got - want).abs().max())
-        ms = cuda_time(lambda: pg.phmm_counts(*args), reps=5)
-        plain_ms = cuda_time(lambda: pg.phmm_counts_plain(*args), reps=1,
-                             warmup=0)
-        moved = nbytes(*args) + got.numel() * 4
-        flops = 60.0 * W * float((q_lens + 1).sum())
-        t_bytes = moved / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_OPS_PER_S * 1e3
-        Qc = qs.shape[1]
-        log(f"counts {label} B={len(qs)} Q={Qc} W={W}: max abs err {err:.3g}, "
-            f"bitwise equal in two calls, kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.1f} ms, bound {max(t_bytes, t_ops):.3f} ms")
-        res.append(dict(label=label, B=len(qs), Q=Qc, W=W, err=err, ms=ms,
-                        plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-                        bound_by="bytes" if t_bytes >= t_ops
-                        else "operations"))
-        del args, got, again, want, batch
-        torch.cuda.empty_cache()
-
     # the gradient: counts kernel path vs autograd through the plain forward
     tpl, qs, offs, q_lens, Wg = _pileup_pairs(rng, 8, 240, 256, 64,
                                               jitter=16)
@@ -607,9 +585,94 @@ def check_counts(rng, dev, wide=True):
                grad_max_abs_err_per_bp=g_err,
                shape=dict(B=r0["B"], Q=r0["Q"], W=r0["W"]))
     for r in res[1:]:
-        row[f"at_{r['label']}"] = {k: r[k] for k in (
-            "B", "Q", "W", "ms", "plain_ms", "bound_ms")}
+        row[f"at_{r['label']}"] = _at(r)
     return row
+
+
+def _counts_case(rng, dev, label, short):
+    """The counts kernel on a model-tune pileup (B ~ 40, Q ~ 2.1 k) whose
+    first read starts ``short`` bases late, against its plain version
+    (rtol 1e-3 / atol 1e-4), bitwise equal in two calls, its M + I
+    emissions summing to each read's length."""
+    import torch
+
+    from jtk_tpu_torch.ops import phmm_grad as pg
+    from jtk_tpu_torch.ops import phmm_lk as k1l
+    from jtk_tpu_torch.ops.phmm import PHMMParams
+
+    params = PHMMParams.default(dev)
+    tpl, qs, offs, q_lens, W = _pileup_pairs(rng, 40, 2000, 64, 128,
+                                             short=short)
+    # model tuning's outlier filter (stages/model_tune.py): the band is
+    # sized from every read, the gradient taken on reads whose lk per base
+    # is above -2 (a read that starts 150 or more bases late is not: its
+    # paths open with a row-0 mass under float32's range)
+    lk = k1l.phmm_lk(*k1l.lk_inputs(qs, tpl, offs, q_lens, len(tpl), W,
+                                    device=dev), *k1l.tables8(params, dev))
+    keep = lk.cpu().numpy() / q_lens > -2.0
+    if 0 < short < 150 and not keep[0]:
+        raise AssertionError(f"counts {label}: the late read was filtered")
+    qs, offs, q_lens = qs[keep], offs[keep], q_lens[keep]
+    batch = pg.PairBatch(qs, tpl, offs, q_lens, len(tpl), W, device=dev)
+    args = pg.counts_args(pg.counts_prep(params, batch), W)
+    torch.cuda.synchronize()
+    got = pg.phmm_counts(*args)
+    again = pg.phmm_counts(*args)
+    want = pg.phmm_counts_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.allclose(got, want, rtol=1e-3, atol=1e-4):
+        raise AssertionError(f"counts {label}: kernel differs from plain "
+                             f"(max {float((got - want).abs().max())})")
+    if not torch.equal(got, again):
+        raise AssertionError(f"counts {label}: two calls differ")
+    # each query base is emitted by exactly one M or I state
+    emitted = got[:, 9:].sum(1)
+    if not torch.allclose(emitted, batch.q_lens.to(torch.float32),
+                          rtol=1e-3):
+        raise AssertionError(f"counts {label}: M + I emissions do not sum "
+                             f"to q_len")
+    err = float((got - want).abs().max())
+    ms = cuda_time(lambda: pg.phmm_counts(*args), reps=5)
+    plain_ms = cuda_time(lambda: pg.phmm_counts_plain(*args), reps=1,
+                         warmup=0)
+    moved = nbytes(*args) + got.numel() * 4
+    flops = 60.0 * W * float((q_lens + 1).sum())
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_OPS_PER_S * 1e3
+    Qc = qs.shape[1]
+    log(f"counts {label} B={len(qs)} Q={Qc} W={W}: max abs err {err:.3g}, "
+        f"bitwise equal in two calls, kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.1f} ms, bound {max(t_bytes, t_ops):.3f} ms")
+    del args, got, again, want, batch
+    torch.cuda.empty_cache()
+    return dict(label=label, B=len(qs), Q=Qc, W=W, err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_wide(rng, dev, rows):
+    """The last step: the band widths above 1024 that the pipeline can
+    reach, K3 at W 1152, 2048, 4096 and 8192 (its limit), K1l at
+    LK_WIDE_SHAPES and counts at COUNTS_WIDE_SHAPES, each held to its
+    check at the main shapes; their times go into ``rows`` (the K3, K1l
+    and counts rows of the kernels line, by name)."""
+    import torch
+
+    by_name = {r["name"]: r for r in rows}
+    k3_row = by_name["edit_dp (K3)"]
+    for Wd in (1152, 2048, 4096, 8192):
+        k3_row[f"at_W{Wd}"] = _k3_wide(rng, dev, Wd)
+        torch.cuda.empty_cache()
+    lk_row = by_name["phmm_lk (K1l)"]
+    for shape in LK_WIDE_SHAPES:
+        r = _lk_case(rng, dev, *shape)
+        lk_row[f"at_{r['label']}"] = _at(r)
+        lk_row["max_abs_err"] = max(lk_row["max_abs_err"], r["err"])
+    counts_row = by_name["phmm_counts (lk gradient)"]
+    for shape in COUNTS_WIDE_SHAPES:
+        r = _counts_case(rng, dev, *shape)
+        counts_row[f"at_{r['label']}"] = _at(r)
+        counts_row["max_abs_err"] = max(counts_row["max_abs_err"], r["err"])
 
 
 # ---------------------------------------------------------------------------
@@ -926,25 +989,26 @@ def _shape_call(kind, rng, dev, B, Q, W):
             bound(args, 4 * B * Q * (3 * W + 1), 40.0 * W * rows))
 
 
-def time_path_shapes(rng, dev, counters, top=3):
+def time_path_shapes(rng, dev, path_shapes, top=3):
     """Time each kernel once at the main path's most-launched shapes (the
-    ``top`` of each launch counter) and K3 at its longest-Q shape, beside
-    each shape's bound, and print launches x time and launches x (time -
-    bound).  The counters keep the path's counts: these calls are not the
-    path's.  Returns {kernel: [[B, Q, W], launches, ms, bound_ms]}."""
+    ``top`` of each kernel's launches by shape, ``path_shapes``: {kernel:
+    Counter of (B, Q, W)}, taken from the counters after the path) and K3
+    at its longest-Q shape, beside each shape's bound, and print launches x
+    time and launches x (time - bound).  Returns {kernel: [[B, Q, W],
+    launches, ms, bound_ms]}."""
     import torch
 
-    saved = [(c.count, c.shapes.copy()) for c in counters]
     out = {}
-    for c, (count, shapes) in zip(counters, saved):
+    for name, shapes in path_shapes.items():
+        count = sum(shapes.values())
         picked = [s for s, _n in shapes.most_common(top)]
-        if c.name == "edit_dp" and shapes:
+        if name == "edit_dp" and shapes:
             longest = max(shapes, key=lambda s: (s[1], shapes[s]))
             if longest not in picked:
                 picked.append(longest)
         rows = []
         for shape in picked:
-            fn, bound_ms = _shape_call(c.name, rng, dev, *shape)
+            fn, bound_ms = _shape_call(name, rng, dev, *shape)
             rows.append([list(shape), shapes[shape], cuda_time(fn, reps=3),
                          bound_ms])
             del fn
@@ -952,14 +1016,12 @@ def time_path_shapes(rng, dev, counters, top=3):
         total = sum(n * ms for _s, n, ms, _b in rows)
         gap = sum(n * (ms - b) for _s, n, ms, b in rows)
         covered = sum(n for _s, n, _ms, _b in rows)
-        log(f"path (b) {c.name} at its shapes: " + ", ".join(
+        log(f"path (b) {name} at its shapes: " + ", ".join(
             f"{tuple(s)} {n} x {ms:.3f} ms (bound {b:.4f})"
             for s, n, ms, b in rows)
             + f"; launches x time {total:.1f} ms, x (time - bound) "
             f"{gap:.1f} ms, over {covered} of {count} launches")
-        out[c.name] = rows
-    for c, (count, shapes) in zip(counters, saved):
-        c.count, c.shapes = count, shapes
+        out[name] = rows
     return out
 
 
@@ -978,9 +1040,6 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="build and check the kernels, drive no path")
-    ap.add_argument("--skip-wide", action="store_true",
-                    help="leave out the band widths above 1024 (to time a "
-                         "tree whose kernels refuse them)")
     opts = ap.parse_args()
     try:
         import torch
@@ -1035,14 +1094,15 @@ def main() -> int:
                     spills.append(f"{fn} spills ({line.strip()})")
 
     rng = np.random.default_rng(SEED)
-    wide = not opts.skip_wide
-    rows = [check_k3(rng, dev, wide)]
+    rows = [check_k3(rng, dev)]
     torch.cuda.empty_cache()
     rows += check_tables(rng, dev)
     torch.cuda.empty_cache()
-    rows.append(check_lk(rng, dev, wide))
+    rows.append(check_lk(rng, dev))
     torch.cuda.empty_cache()
-    rows.append(check_counts(rng, dev, wide))
+    rows.append(check_counts(rng, dev))
+    torch.cuda.empty_cache()
+    check_wide(rng, dev, rows)
     torch.cuda.empty_cache()
     log(f"kernel checks done at {time.time() - t_all:.1f} s")
     if opts.kernels_only:
@@ -1069,6 +1129,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     res_b = run_pipeline_path(np.random.default_rng(SEED + 2))
     launches_b = [c.count for c in counters]
+    shapes_b = {c.name: c.shapes.copy() for c in counters}
     log("path (b) pipeline: " + json.dumps(res_b))
     log(f"path (b) peak device memory: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1077,13 +1138,13 @@ def main() -> int:
     # where each kernel's launches on the main path go, by (B, Q, W): the
     # launches x time of a kernel at the shapes the pipeline uses
     res_b["launch_shapes_top5"] = {}
-    for c in counters:
-        top = c.shapes.most_common(5)
-        log(f"path (b) {c.name} launches by shape (B, Q, W), top 5 of "
-            f"{len(c.shapes)}: " + ", ".join(f"{s}={n}" for s, n in top))
-        res_b["launch_shapes_top5"][c.name] = [[list(s), n] for s, n in top]
+    for name, shapes in shapes_b.items():
+        top = shapes.most_common(5)
+        log(f"path (b) {name} launches by shape (B, Q, W), top 5 of "
+            f"{len(shapes)}: " + ", ".join(f"{s}={n}" for s, n in top))
+        res_b["launch_shapes_top5"][name] = [[list(s), n] for s, n in top]
     res_b["shape_times"] = time_path_shapes(np.random.default_rng(SEED + 3),
-                                            dev, counters)
+                                            dev, shapes_b)
     for strand, h in res_b["hmm"].items():
         log(f"fitted {strand} HMM: trans {h['trans']}, mat_emit diagonal "
             f"{h['mat_emit_diag']}")

@@ -9,12 +9,14 @@
 // Design: one block per pair; each thread holds L consecutive band lanes
 // (L = 1, 2, 4 or 8, so that a block of at most 1024 threads covers W up to
 // 8192; ops/edit_dp.py::edit_dp_geometry).  Each query row is one step:
-// shift the band (in-thread neighbours from registers, a thread's edge
-// lanes through shared memory), take the diag and up candidates, solve the
-// in-row ref-gap chain e[k] = min_{k'<=k} cand[k'] + (k - k') as a prefix
-// min of cand[k] - k, find the left-run lengths as a prefix max of the
-// last non-LEFT lane, and store one int16 (ptr | run << 2) per cell into
-// the (Q, B, W) stream.  Each prefix is a serial pass over the thread's
+// shift the band (neighbour lanes through shared memory), take the diag and
+// up candidates, solve the in-row ref-gap chain e[k] = min_{k'<=k} cand[k']
+// + (k - k') as a prefix min of cand[k] - k, find the left-run lengths as a
+// prefix max of the last non-LEFT lane, and store one int16 (ptr | run <<
+// 2) per cell into the (Q, B, W) stream.  At one lane a thread (W <= 1024,
+// every launch of the mapper and of consensus tiles up to ~7 kb) each
+// prefix is one block scan (edit_dp_row1); above, a thread's in-thread
+// neighbours come from registers and each prefix is a serial pass over its
 // lanes around an exclusive block scan of the threads' totals.
 //
 // Bound on the H100: the stream write, 2 * Q * W bytes per pair (1 MB at
@@ -79,6 +81,69 @@ __device__ __forceinline__ int block_scan(int v, int* tmp, int& ex) {
       int16_t *__restrict__ out, int32_t *__restrict__ last, int B, int Q,  \
       int W
 #define EDIT_PASS e0, qs, shifts, inc, rc0, j0, qlen, tlen, out, last, B, Q, W
+
+// One lane a thread: lane k is thread k, with none of the L-lane form's
+// lane guards and exclusive-scan selects.
+__device__ __forceinline__ void edit_dp_row1(EDIT_ARGS) {
+  extern __shared__ int smem[];
+  int* ebuf = smem;                 // blockDim.x
+  int* rcbuf = ebuf + blockDim.x;   // blockDim.x
+  int* tmp = rcbuf + blockDim.x;    // 32: the block scans' warp totals
+
+  const int b = blockIdx.x;
+  const int k = threadIdx.x;
+  const bool lane = k < W;
+  const size_t row_base = (size_t)b * W;
+  int e = lane ? e0[row_base + k] : EDIT_INF;
+  int j = lane ? j0[row_base + k] : 0;
+  int rc = lane ? rc0[row_base + k] : 4;
+  const int ql = qlen[b];
+  const int tl = tlen[b];
+  const int32_t* qrow = qs + (size_t)b * Q;
+  const int32_t* srow = shifts + (size_t)b * Q;
+  const int32_t* irow = inc + (size_t)b * Q;
+  int unused;
+
+  for (int i = 1; i <= Q; ++i) {
+    const int qc = qrow[i - 1];
+    const int sv = srow[i - 1];
+    const int newc = irow[i - 1];
+    ebuf[k] = e;
+    rcbuf[k] = rc;
+    __syncthreads();
+    const int e_next = (k + 1 < W) ? ebuf[k + 1] : EDIT_INF;   // roll left
+    const int e_prev = (k > 0) ? ebuf[k - 1] : EDIT_INF;       // roll right
+    const int rc_next = (k == W - 1) ? newc : ((k + 1 < W) ? rcbuf[k + 1] : 4);
+    __syncthreads();
+    const bool one = sv == 1;
+    int up = (one ? e_next : e) + 1;                 // E[i-1][j] + 1
+    const int diag_v = one ? e : e_prev;              // E[i-1][j-1]
+    const int rc_n = one ? rc_next : rc;
+    const int j_n = j + sv;
+    const bool ok = j_n <= tl;
+    const int diag = (ok && j_n >= 1) ? diag_v + (rc_n == qc ? 0 : 1)
+                                      : EDIT_INF;
+    up = ok ? up : EDIT_INF;
+    const int cand = min(diag, up);
+    // padding lanes sit past the last real lane: they never feed a prefix
+    const int y = block_scan<true, false>(lane ? cand - k : EDIT_INF, tmp,
+                                          unused);
+    const int er = ok ? min(cand, y + k) : EDIT_INF;
+    // diag wins ties over up over left
+    const int ptr = (er == diag) ? 0 : ((er == up) ? 1 : 2);
+    const int nonleft = block_scan<false, false>((ptr != 2) ? k : -1, tmp,
+                                                 unused);
+    const int run = (ptr == 2) ? (k - nonleft) : 0;
+    if (lane)
+      out[((size_t)(i - 1) * B + b) * W + k] = (int16_t)(ptr | (run << 2));
+    if (i <= ql) {
+      e = er;
+      j = j_n;
+      rc = rc_n;
+    }
+  }
+  if (lane) last[row_base + k] = e;
+}
 
 template <int L>
 __device__ __forceinline__ void edit_dp_rows(EDIT_ARGS) {
@@ -185,13 +250,18 @@ __device__ __forceinline__ void edit_dp_rows(EDIT_ARGS) {
     if (k0 + l < W) last[row_base + k0 + l] = e[l];
 }
 
-// No launch bound below 8 lanes: with one, ptxas holds L = 1 near 32
-// registers by recomputing shared addresses inside the row loop (269
-// instructions a row against 197, 10.0 ms against 7.8 at B 2048, Q 2048,
-// W 256 on the H100).  At 8 lanes 1024 threads must fit 64 registers a
-// thread, which only the bound guarantees.
+// No launch bound below 8 lanes: with one, ptxas holds a row near 32
+// registers by recomputing shared addresses inside the row loop (the
+// L-lane form at one lane: 269 instructions a row against 197, 10.0 ms
+// against 7.8 at B 2048, Q 2048, W 256 on the H100).  At 8 lanes 1024
+// threads must fit 64 registers a thread, which only the bound guarantees.
 template <int L>
-__global__ void edit_dp_kernel(EDIT_ARGS) { edit_dp_rows<L>(EDIT_PASS); }
+__global__ void edit_dp_kernel(EDIT_ARGS) {
+  if constexpr (L == 1)
+    edit_dp_row1(EDIT_PASS);
+  else
+    edit_dp_rows<L>(EDIT_PASS);
+}
 
 __global__ void __launch_bounds__(MAX_THREADS, 1)
 edit_dp_kernel8(EDIT_ARGS) { edit_dp_rows<8>(EDIT_PASS); }

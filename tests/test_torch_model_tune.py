@@ -164,6 +164,25 @@ def test_expected_counts_account_for_every_base():
                                rtol=1e-4)
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_counts_finite_for_a_read_that_starts_late(seed):
+    """A read that starts 22 bases into its template: at row 0 a cell's
+    weight exp(fcum + bcum - lk) passes float32's range where F * B is
+    tiny.  Split between the two tables it stays finite, and the read's
+    M + I emissions still sum to its length."""
+    rng = np.random.default_rng(seed)
+    template = sim.random_genome(rng, 300)
+    reads = [sim.noisy_read(rng, template, 0.05)[:316] for _ in range(6)]
+    reads[0] = reads[0][22:]
+    qs, offs, q_lens, W = _batch(template, reads)
+    batch = pg.PairBatch(qs, template, offs, q_lens, len(template), W)
+    params = pphmm.PHMMParams.default("cpu")
+    c = pg.phmm_counts_plain(*pg.counts_args(pg.counts_prep(params, batch),
+                                             W))
+    assert torch.isfinite(c).all()
+    np.testing.assert_allclose(c[:, 9:].sum(1).numpy(), q_lens, rtol=1e-4)
+
+
 def test_ten_train_steps_match_jax():
     rng = np.random.default_rng(2)
     template, reads = _full_length_batch(rng, n=10)
