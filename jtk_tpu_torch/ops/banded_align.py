@@ -243,6 +243,9 @@ def banded_align_batch(qs, rs, offsets, q_lens, t_lens, W: int,
     Q, B, _ = packed.shape
     ptrs = np.zeros((B, Q + 1, W), np.uint8)
     ptrs[:, 1:] = (packed & 3).to(torch.uint8).permute(1, 0, 2).cpu().numpy()
+    # rows past each q_len are frozen, never traced back, and on the card
+    # never written: zero them on every device
+    ptrs[np.arange(Q + 1)[None] > np.asarray(q_lens)[:, None]] = 0
     return {
         "score": score.cpu().numpy().astype(np.int32),
         "end_j": end_j.cpu().numpy().astype(np.int32),

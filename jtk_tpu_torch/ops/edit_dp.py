@@ -4,16 +4,20 @@ Counterpart of ``jtk_tpu/ops/pallas_k3.py``.  :func:`edit_dp` is the kernel
 wrapper: on a CUDA tensor it launches the hand-written kernel
 ``csrc/edit_dp.cu`` (W up to MAX_W, :func:`edit_dp_geometry`); on a CPU
 tensor it runs :func:`edit_dp_plain`, the same function in plain PyTorch.
-Around it sit the glue of ``pallas_extend_hostwin`` (band offsets, window
-setup, score/end selection, the batched traceback walk and the result
-packing: insertion bitmask, top-``DEL_TOPK`` deletion runs, 6-column meta)
-and the shared entry point :func:`k3_batch` used by every alignment in the
-port.
+:func:`traceback_packed` walks the stream back from each pair's end: on a
+CUDA tensor it launches the walk kernel of the same source, on a CPU
+tensor it runs :func:`traceback_packed_plain`.  Around them sit the glue of
+``pallas_extend_hostwin`` (band offsets, window setup, score/end
+selection and the result packing: insertion bitmask, top-``DEL_TOPK``
+deletion runs, 6-column meta) and the shared entry point :func:`k3_batch`
+used by every alignment in the port.
 
 Band conventions (as in the reference): offsets have unit increments,
-``rc[k] = r[j-1]`` for ``j = off_i + k``, rows past ``q_len`` are frozen.
-The stream is ``(Q, B, W)`` int16 holding ``ptr | left_run << 2`` (ptr 0 =
-diag, 1 = up, 2 = left; diag wins ties over up over left).
+``rc[k] = r[j-1]`` for ``j = off_i + k``.  The stream is ``(Q, B, W)``
+int16 holding ``ptr | left_run << 2`` (ptr 0 = diag, 1 = up, 2 = left;
+diag wins ties over up over left).  Only the rows of each pair up to its
+``q_len`` hold cells (the walk reads no others); ``last`` is the state at
+row ``q_len``.
 """
 
 from __future__ import annotations
@@ -26,25 +30,34 @@ from .cuda_build import Launches, check, launch
 INF = 1 << 30
 DEL_TOPK = 192
 MAX_W = 8192            # ptr | run << 2 with run < W fits an int16
-MAX_LANES = 8           # band lanes a thread keeps (1, 2, 4 or 8)
-MAX_THREADS = 1024      # threads of the one block a pair has
+WARP_FORM_W = 2048      # 16 warps x 4 lanes: the widest warp-form band
+MAX_LANES = 4           # band lanes a thread keeps in the warp form
+MAX_WARPS = 16          # warps of a pair in the warp form
+MAX_THREADS = 1024      # threads of a pair's block in the block form
 # (Q, B, W) int16 stream of one launch stays under 2^30 cells (2 GB)
 STREAM_CELLS = 1 << 30
 
 LAUNCHES = Launches("edit_dp")
+TB_LAUNCHES = Launches("edit_tb")
 
 
-def edit_dp_geometry(W: int) -> tuple[int, int]:
+def edit_dp_geometry(W: int) -> tuple[int, int, int]:
     """Launch geometry of the K3 kernel for band width ``W``: (lanes per
-    thread, threads per block).  A thread takes the fewest lanes (a power
-    of two up to MAX_LANES) that leave the band at most MAX_THREADS
-    threads, rounded up to whole warps."""
+    thread, warps per pair, pairs per block).  Up to WARP_FORM_W the warp
+    form: the fewest lanes up to MAX_LANES that one warp needs, then as
+    many warps as the band needs, 4 warps a block (or one wider pair).
+    Above, the block form: one pair a block of at most MAX_THREADS threads,
+    4 lanes a thread (8 above 4096)."""
     if not 1 <= W <= MAX_W:
         raise ValueError(f"edit_dp: band width {W} outside 1..{MAX_W}")
-    lanes = 1
-    while -(-W // lanes) > MAX_THREADS:
-        lanes *= 2
-    return lanes, -(-W // (32 * lanes)) * 32
+    if W <= WARP_FORM_W:
+        lanes = 1
+        while lanes < MAX_LANES and 32 * lanes < W:
+            lanes *= 2
+        warps = -(-W // (32 * lanes))
+        return lanes, warps, max(1, 4 // warps)
+    lanes = 4 if W <= 4 * MAX_THREADS else 8
+    return lanes, -(-W // (32 * lanes)), 1
 
 
 def edit_dp_plain(e0, qs, shifts, inc, rc0, j0, qlen, tlen):
@@ -94,8 +107,11 @@ def edit_dp(e0, qs, shifts, inc, rc0, j0, qlen, tlen):
 
     e0, rc0, j0: (B, W) int32 row-0 values, ref chars r[j-1] and columns;
     qs, shifts, inc: (B, Q) int32 query chars, band shifts (0/1) and the
-    char entering lane W-1 on a shift; qlen, tlen: (B,) int32.
-    Returns (stream (Q, B, W) int16, last row (B, W) int32)."""
+    char entering lane W-1 on a shift; qlen, tlen: (B,) int32.  Each row
+    of j0 is unit-step (``j0[b, k] = j0[b, 0] + k``, as :func:`k3_inputs`
+    makes it) and chars fit an int8.
+    Returns (stream (Q, B, W) int16, last row (B, W) int32); on the card a
+    pair's stream rows from index q_len on are not written."""
     if e0.device.type == "cpu":
         # rows past every q_len freeze the state and are never traced back:
         # the plain run stops at the longest query (those stream rows stay 0)
@@ -106,16 +122,19 @@ def edit_dp(e0, qs, shifts, inc, rc0, j0, qlen, tlen):
         return out, last
     B, W = e0.shape
     Q = qs.shape[1]
-    lanes, _threads = edit_dp_geometry(W)
+    lanes, warps, ppb = edit_dp_geometry(W)
     for t, name, shape in ((e0, "e0", (B, W)), (rc0, "rc0", (B, W)),
                            (j0, "j0", (B, W)), (qs, "qs", (B, Q)),
                            (shifts, "shifts", (B, Q)), (inc, "inc", (B, Q)),
                            (qlen, "qlen", (B,)), (tlen, "tlen", (B,))):
         check(t, torch.int32, shape, name)
+    # the kernel stops at each pair's q_len: rows past it stay unwritten
     out = torch.empty((Q, B, W), dtype=torch.int16, device=e0.device)
+    if Q == 0:
+        return out, e0.clone()
     last = torch.empty((B, W), dtype=torch.int32, device=e0.device)
     launch("edit_dp", "edit_dp_launch", e0, qs, shifts, inc, rc0, j0, qlen,
-           tlen, out, last, B, Q, W, lanes)
+           tlen, out, last, B, Q, W, lanes, warps, ppb)
     LAUNCHES.add((B, Q, W))
     return out, last
 
@@ -150,10 +169,38 @@ def k3_inputs(q, r, off, t_lens, W: int, mode: str):
 
 
 def traceback_packed(packed, off, q_len, end_j, W: int):
-    """Batched traceback over the packed stream (one step per query row,
-    all pairs at once).  Returns (dels (B, Q) int32, ops (B, Q) uint8,
-    start_j (B,)): step t covers query char q_len-1-t, ``dels[t]``
-    ref-deletions first, then op 1 = M or 2 = I."""
+    """Walk the packed stream from (q_len, end_j) back to row 0, every pair
+    at once.  Returns (dels (B, Q) int32, ops (B, Q) uint8, start_j (B,)
+    int64): step t covers query char q_len-1-t, ``dels[t]`` ref-deletions
+    first, then op 1 = M or 2 = I; steps at and past q_len are 0.  On a
+    CUDA tensor it launches the walk kernel of ``csrc/edit_dp.cu``, on a
+    CPU tensor it runs :func:`traceback_packed_plain`."""
+    if packed.device.type == "cpu":
+        return traceback_packed_plain(packed, off, q_len, end_j, W)
+    Q, B, _ = packed.shape
+    check(packed, torch.int16, (Q, B, W), "packed")
+    if packed.data_ptr() % 16:
+        raise ValueError("packed: expected a 16-byte aligned stream")
+    off = off.to(torch.int64).contiguous()
+    ql = q_len.to(torch.int32).contiguous()
+    ej = end_j.to(torch.int64).contiguous()
+    for t, name, shape in ((off, "off", (B, Q + 1)), (ql, "q_len", (B,)),
+                           (ej, "end_j", (B,))):
+        check(t, t.dtype, shape, name)
+    dels = torch.empty((B, Q), dtype=torch.int32, device=packed.device)
+    ops = torch.empty((B, Q), dtype=torch.uint8, device=packed.device)
+    start = torch.empty((B,), dtype=torch.int64, device=packed.device)
+    if B == 0 or Q == 0:
+        return dels, ops, ej.clone()
+    launch("edit_dp", "edit_tb_launch", packed, off, ql, ej, dels, ops, start,
+           B, Q, W)
+    TB_LAUNCHES.add((B, Q, W))
+    return dels, ops, start
+
+
+def traceback_packed_plain(packed, off, q_len, end_j, W: int):
+    """Plain PyTorch version of the walk (same inputs and outputs as
+    :func:`traceback_packed`): one step per query row, all pairs at once."""
     Q, B, _ = packed.shape
     dev = packed.device
     flat = packed.reshape(Q, B * W)

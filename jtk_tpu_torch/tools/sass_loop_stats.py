@@ -8,8 +8,8 @@
 For every function in the dump, the row loop is taken as the shortest
 backward branch that encloses the function's first ``anchor`` instruction
 (default ``SHFL.BFLY``, the row scale's reduction in the row wavefronts;
-``BAR.SYNC`` for K3's block barriers, ``SHFL.IDX`` for the counts
-kernel's row streams).  For that loop it prints the
+``SHFL.UP`` for K3's row scan, ``SHFL.IDX`` for the counts kernel's row
+streams and K3's walk).  For that loop it prints the
 instruction count, the sum of the stall counts the compiler encoded in the
 control bits (bits 41-44 of the second 64-bit word, the Volta-family
 layout), and the number of instructions that wait on a scoreboard.  A
@@ -27,6 +27,18 @@ WORD = re.compile(r"/\* (0x[0-9a-f]+) \*/")
 
 
 def loop_stats(body: str, anchor: str = "SHFL.BFLY"):
+    """(instructions, stall cycles, scoreboard waits) of the row loop, or
+    None when the function has no such loop."""
+    loop = loop_body(body, anchor)
+    if loop is None:
+        return None
+    stalls = sum(c & 0xF for _, c in loop)
+    waits = sum(1 for _, c in loop if (c >> 11) & 0x3F)
+    return len(loop), stalls, waits
+
+
+def loop_body(body: str, anchor: str = "SHFL.BFLY"):
+    """The row loop's instructions as (text, control bits), or None."""
     lines = body.split("\n")
     ins = []
     for i, line in enumerate(lines):
@@ -48,10 +60,13 @@ def loop_stats(body: str, anchor: str = "SHFL.BFLY"):
     if not back:
         return None
     end, start = min(back, key=lambda x: x[0] - x[1])
-    loop = [(t, h >> 41) for a, t, h in ins if start <= a <= end]
-    stalls = sum(c & 0xF for _, c in loop)
-    waits = sum(1 for _, c in loop if (c >> 11) & 0x3F)
-    return len(loop), stalls, waits
+    return [(t, h >> 41) for a, t, h in ins if start <= a <= end]
+
+
+def functions(text: str):
+    """(name, body) of each function in a ``cuobjdump -sass`` dump."""
+    for body in re.split(r"\n\s*Function : ", text)[1:]:
+        yield body.split("\n")[0].strip(), body
 
 
 def main() -> int:
@@ -62,8 +77,7 @@ def main() -> int:
         text = f.read()
     pick = sys.argv[2] if len(sys.argv) > 2 else ""
     anchor = sys.argv[3] if len(sys.argv) > 3 else "SHFL.BFLY"
-    for body in re.split(r"\n\s*Function : ", text)[1:]:
-        name = body.split("\n")[0].strip()
+    for name, body in functions(text):
         if pick not in name:
             continue
         st = loop_stats(body, anchor)

@@ -51,7 +51,10 @@ def _k3_inputs(rng, B=48, clen=700, W=256, margin=120):
                          ids=["W256", "W1152-2-lanes", "W1500-2-lanes-masked",
                               "W2048-2-lanes"])
 def test_edit_dp_kernel_matches_plain(W, B, clen):
-    """K3 bit-exact at one lane a thread (W 256) and at two (W > 1024)."""
+    """K3 bit-exact on each pair's stream rows below its q_len (the kernel
+    writes no others) and on the last row, in the warp form: two warps a
+    pair at W 256, nine at 1152, twelve at 1500 (lanes past W), sixteen at
+    2048.  (The block form, above 2048, is held in chip_smoke.py.)"""
     require_cuda()
     from jtk_tpu_torch.ops import edit_dp as k3
     args = _k3_inputs(np.random.default_rng(3 + W), B=B, clen=clen, W=W)
@@ -59,7 +62,48 @@ def test_edit_dp_kernel_matches_plain(W, B, clen):
     got = k3.edit_dp(*args)
     assert k3.LAUNCHES.count == n0 + 1
     want = k3.edit_dp_plain(*args)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert _rows_equal(got[0], want[0], args[6]) and torch.equal(got[1],
+                                                                  want[1])
+
+
+def _rows_equal(got, want, qlen):
+    """Streams equal on each pair's rows below its q_len."""
+    rows = torch.arange(got.shape[0], device=got.device)[:, None, None] \
+        < qlen[None, :, None]
+    return torch.equal(torch.where(rows, got, 0), torch.where(rows, want, 0))
+
+
+@pytest.mark.parametrize("W,B,clen", [(64, 40, 600), (128, 37, 700),
+                                      (256, 23, 900), (512, 9, 1100),
+                                      (1152, 5, 1300)],
+                         ids=["W64", "W128", "W256", "W512", "W1152"])
+def test_edit_dp_and_walk_kernels_match_plain(W, B, clen):
+    """The DP kernel and the walk kernel against their plain versions on
+    the same inputs: the stream on rows below q_len, the last row, and
+    the walk's deletions, ops and starts (B not a multiple of the pairs a
+    block holds; one pair of q_len 0)."""
+    require_cuda()
+    from jtk_tpu_torch.ops import edit_dp as k3
+    args = list(_k3_inputs(np.random.default_rng(11 + W), B=B, clen=clen,
+                           W=W))
+    args[6][0] = 0
+    qlen, tlen = args[6], args[7]
+    packed, last = k3.edit_dp(*args)
+    want, want_last = k3.edit_dp_plain(*args)
+    assert _rows_equal(packed, want, qlen) and torch.equal(last, want_last)
+    Q = packed.shape[0]
+    off = torch.cat([args[5][:, :1].long(), args[5][:, :1].long()
+                     + torch.cumsum(args[2].long(), 1)], 1)
+    _score, end = k3.select_end(last, off, qlen.long(), tlen.long(), W,
+                                "infix")
+    n0 = k3.TB_LAUNCHES.count
+    got = k3.traceback_packed(packed, off, qlen, end, W)
+    assert k3.TB_LAUNCHES.count == n0 + 1
+    ref = k3.traceback_packed_plain(packed, off, qlen, end, W)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+    assert got[1].shape == (B, Q) and int((got[1] > 0).sum()) == \
+        int(qlen.sum())
 
 
 @pytest.mark.parametrize("W,B,spread", [

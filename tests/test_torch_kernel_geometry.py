@@ -55,22 +55,34 @@ def test_counts_geometry_matches_source(W, Q):
     assert units == -(-(Q + 1) // strip) * -(-W // chunk)
 
 
-@pytest.mark.parametrize("W", [1, 31, 256, 1024, 1025, 1152, 2048, 4096,
-                               8192])
+@pytest.mark.parametrize("W", [1, 31, 64, 65, 128, 256, 512, 640, 1024,
+                               1025, 1152, 2048, 2049, 4096, 4097, 8192])
 def test_edit_dp_geometry_is_built(W):
-    """K3 takes the fewest lanes a thread (a power of two that edit_dp.cu
-    builds) that leave at most 1024 threads, in whole warps."""
+    """K3's warp form up to 2048 lanes: the fewest lanes a thread (1, 2 or
+    4) that one warp needs, then as many warps as the band needs (1 to 16,
+    several only at 4 lanes; edit_dp.cu builds each), 4 warps a block or
+    one wider pair; above, the block form: one pair a block of at most 1024
+    threads at 4 lanes, or 8 where 4 would need more."""
     src = _source("edit_dp.cu")
-    built = {int(x) for x in re.findall(r"X\((\d+)\)",
-                                        _macro(src, "EDIT_LANES"))}
+    warp_form = {(int(a), int(b)) for a, b in re.findall(
+        r"X\((\d+), (\d+)\)", _macro(src, "EDIT_WARP_GEOMETRIES"))}
+    block_lanes = {int(x) for x in re.findall(
+        r"X\((\d+)\)", _macro(src, "EDIT_BLOCK_LANES"))}
+    max_warps = _constant(src, "MAX_WARPS")
     max_threads = _constant(src, "MAX_THREADS")
-    lanes, threads = k3.edit_dp_geometry(W)
-    assert lanes in built and lanes <= k3.MAX_LANES
-    assert threads % 32 == 0 and threads <= max_threads
-    assert lanes * threads >= W > lanes * (threads - 32)
-    assert lanes == 1 or -(-W // (lanes // 2)) > max_threads
-    if W <= 1024:   # one lane a thread, as before the limit was lifted
-        assert lanes == 1
+    assert (max_warps, max_threads) == (k3.MAX_WARPS, k3.MAX_THREADS)
+    assert k3.WARP_FORM_W == 32 * k3.MAX_LANES * max_warps
+    lanes, warps, ppb = k3.edit_dp_geometry(W)
+    assert lanes * 32 * warps >= W > lanes * 32 * (warps - 1)
+    if W <= k3.WARP_FORM_W:
+        assert (lanes, warps) in warp_form and lanes <= k3.MAX_LANES
+        assert warps <= max_warps and (warps == 1 or lanes == 4)
+        assert lanes == 1 or 32 * (lanes // 2) < W
+        assert ppb * warps <= max(4, warps) and ppb == max(1, 4 // warps)
+    else:
+        assert lanes in block_lanes and ppb == 1
+        assert max_warps < warps and 32 * warps <= max_threads
+        assert lanes == 4 or -(-W // 4) > max_threads
 
 
 @pytest.mark.parametrize("W,ok", [(2048, True), (2049, False)])
@@ -88,7 +100,7 @@ def test_lk_and_counts_band_limit(W, ok):
 @pytest.mark.parametrize("W,ok", [(8192, True), (8193, False)])
 def test_edit_dp_band_limit(W, ok):
     if ok:
-        assert k3.edit_dp_geometry(W) == (8, 1024)
+        assert k3.edit_dp_geometry(W) == (8, 32, 1)
         # ptr | run << 2 with run <= W - 1 still fits an int16
         assert 2 | (W - 1) << 2 <= 2 ** 15 - 1
         return
