@@ -6,17 +6,22 @@
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels of ``jtk_tpu_torch/csrc`` (one nvcc per source,
    started together), fails on a ptxas spill of K3 (its DP and walk), the
-   K1 family or counts, and prints the SASS row-loop statistics of K3's
+   K1 family, counts or the MCMC chain, and prints the SASS row-loop
+   statistics of K3's
    warp-form DP and of its walk (``tools/sass_loop_stats``), failing on a
    block-wide barrier in either loop;
 3. holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (K3 at the mapper's B 2048 and at path (b)'s own K3
    shapes; the K1 tables at polish's B 192 / W 128 and W 512 and model
    tuning's B 40 / W 128 and W 256; K1l also at the gain calibration's B
-   256 / W 64 and with an N; counts also with a read that starts 22 bases
-   late) and then, in a last step, at the band widths above 1024 that the
-   pipeline can reach (K3 up to 8192, K1l and counts up to 2048), and
-   times both with CUDA events, each beside its bound: K3's DP bit-exact
+   256 / W 64 and with an N; the gradient's float64 tables at model
+   tuning's B 40 / W 128 and 256; counts, from float64 tables, also with
+   reads that start 22 and 40 bases late; the MCMC chain at path (b)'s
+   B 27 x 20 restarts / K 2 / V 8, at K 4 / V 12 and at K 8 / V 40) and
+   then, in a last step, at the band widths above 1024 that the pipeline
+   can reach (K3 up to 8192, the K1 family, tables, K1l and counts, up to
+   4096), and times both with CUDA events, each beside its bound: K3's DP
+   bit-exact
    on each pair's stream rows below its q_len and the last row, its walk
    bit-exact against the plain walk, and the decoded CIGARs; the K1 tables
    within rtol 2e-3 / atol 1e-5 (tables) and rtol 1e-4 / atol 2e-2
@@ -24,7 +29,9 @@
    plain version and of K1f's lk; the counts kernel within rtol 1e-3 /
    atol 1e-4 and bitwise equal in two calls; the PairHMMLikelihood
    gradient within rtol 1e-3 / atol 1e-4 (per bp) of torch.autograd
-   through the plain forward;
+   through the plain forward; the MCMC chain bit-exact against its plain
+   version over four draw blocks (every state tensor), timed per
+   1024-step launch and per clustering call of 100 000 steps;
 4. path (a): the stage-by-stage slice reads -> GFA (entry, mask_repeats,
    select_chunks, pick_top_n_component, estimate/purge multiplicity,
    local_clustering, assemble with contig polishing) on a simulated 60 kb
@@ -35,7 +42,8 @@
    more ``dump_sam`` on the rerun's contigs, split into K3's DP, its walk
    and the host by synchronised timers (outside the timed path; its
    launches are not counted); model tuning's counts are checked for pairs
-   whose M + I emissions miss their q_len by more than 1 %;
+   whose M + I emissions miss their q_len by more than 1 %, each listed
+   with how late its read starts in its chunk;
 6. counts every kernel's launches on each path (set to 0 just before it,
    read just after; path (a) by stage, path (b) by launch shape (B, Q, W),
    the five most frequent of each kernel), times each kernel at path
@@ -78,7 +86,8 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM memory rate
 FP32_OPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 OUT_DIR = os.path.join(HERE, "chiprun_out", "chip_smoke")
 # libraries whose kernels must not spill (the script fails on a spill)
-NO_SPILL = ("edit_dp", "phmm_tables", "phmm_lk", "phmm_counts")
+NO_SPILL = ("edit_dp", "phmm_tables", "phmm_lk", "phmm_counts", "mcmc_chain")
+LIBRARIES = NO_SPILL
 
 
 def log(*a):
@@ -145,6 +154,10 @@ K3_PATH_SHAPES = ((29, 256, 128), (26, 2048, 768), (748, 2240, 640),
 # latency of a shared-memory load on Hopper (cycles, public
 # microbenchmarks): the walk's chain is two dependent loads a step
 SMEM_LOAD_CYCLES = 30
+# latencies (cycles, public microbenchmarks) of a warp shuffle and of a
+# dependent fp32 add: the MCMC chain's step is a chain of such operations
+SHFL_CYCLES = 24
+FP32_CYCLES = 4
 
 
 def roofline(bytes_, ops):
@@ -400,15 +413,32 @@ def _k3_wide_inputs(rng, dev, W, B=8, margin=600):
     return args + (t(q_lens, torch.int32), tl.to(torch.int32)), off
 
 
-TABLE_SHAPES = (("polish", 192, 128), ("polish_W512", 192, 512),
-                ("model_tune", 40, 128), ("model_tune_W256", 40, 256))
+# (label, B, W, type): polish's B 192 at W 128 and 512, model tuning's B 40
+# at W 128 and 256 (the modtable's float32 tables), and the gradient's
+# float64 tables at model tuning's shapes
+TABLE_SHAPES = (("polish", 192, 128, "f32"), ("polish_W512", 192, 512, "f32"),
+                ("model_tune", 40, 128, "f32"),
+                ("model_tune_W256", 40, 256, "f32"),
+                ("model_tune_f64", 40, 128, "f64"),
+                ("model_tune_W256_f64", 40, 256, "f64"))
+# in the last step: the register form's widest band (2048), then above it
+# the wide form, both types
+TABLE_WIDE_SHAPES = (("W2048", 8, 2048, "f32"), ("W2176", 8, 2176, "f32"),
+                     ("W4096", 4, 4096, "f32"),
+                     ("W2176_f64", 8, 2176, "f64"),
+                     ("W4096_f64", 4, 4096, "f64"))
 
 
-def check_tables(rng, dev):
-    """K1 forward/backward at Q = 2048 read rows against ~2 kb templates:
-    B = 192 pairs at W = 128 (ONT band 0.03 * 2000 rounded up) and 512
-    (polish), and model tuning's B = 40 at W = 128 and 256 (a pileup whose
-    shortest read widens the band, ``effective_band``)."""
+def _table_type(name):
+    import torch
+    return torch.float64 if name == "f64" else torch.float32
+
+
+def _tables_case(rng, dev, label, B, W, type_name):
+    """K1 forward and backward on B reads against ~2 kb templates (Q 2048;
+    past W 2048, templates ~W + 150 long), a random strand each, against
+    the plain versions in the same type: tables within rtol 2e-3 / atol
+    1e-5, cumulative log scales rtol 1e-4 / atol 2e-2."""
     import numpy as np
     import torch
 
@@ -417,64 +447,72 @@ def check_tables(rng, dev):
     from jtk_tpu_torch.ops.banded_align import linear_offsets
     from jtk_tpu_torch.ops.phmm import PHMMParams
 
-    Q = 2048
+    tlen = 2000 if W <= 2048 else W + 150
+    Q = 2048 if W <= 2048 else ((tlen + 40 + 127) // 128) * 128
+    dtype = _table_type(type_name)
     params_f = PHMMParams.default(dev)
     # reverse-strand set: a perturbed copy, so the strand select matters
     params_r = PHMMParams(params_f.trans * 0.98 + 0.0066,
                           params_f.mat_emit, params_f.ins_emit)
+    tpl = np.full((B, Q + 64), 4, np.int8)
+    qs = np.full((B, Q), 4, np.int8)
+    q_lens = np.zeros(B, np.int64)
+    t_lens = np.zeros(B, np.int64)
+    offs = np.zeros((B, Q + 1), np.int64)
+    for b in range(B):
+        t = sim.random_genome(rng, tlen - int(rng.integers(0, 40)))
+        read = sim.noisy_read(rng, t, 0.05)[:Q]
+        tpl[b, :len(t)] = t
+        qs[b, :len(read)] = read
+        q_lens[b], t_lens[b] = len(read), len(t)
+        offs[b] = linear_offsets(len(read), len(t), Q, W)
+    strands = rng.random(B) < 0.5
+    prep = pt.prep_tables_inputs(qs, tpl, offs, q_lens, t_lens, params_f,
+                                 W, strands=strands, params_rev=params_r,
+                                 device=dev)
+    fwd_args, bwd_args, _aux = pt.kernel_inputs(prep, W, dtype)
+    out = {}
+    for kind, args, kern, plain in (
+            ("fwd", fwd_args, pt.fwd_tables, pt.fwd_tables_plain),
+            ("bwd", bwd_args, pt.bwd_tables, pt.bwd_tables_plain)):
+        torch.cuda.synchronize()
+        got = kern(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        err = 0.0
+        for g, w in zip(got[:3], want[:3]):
+            if g.dtype != dtype or not torch.allclose(g, w, rtol=2e-3,
+                                                      atol=1e-5):
+                raise AssertionError(f"K1 {kind} {label}: tables differ "
+                                     f"(max {float((g - w).abs().max())})")
+            err = max(err, float((g - w).abs().max()))
+        cg, cw = torch.cumsum(got[3], 1), torch.cumsum(want[3], 1)
+        if not torch.allclose(cg, cw, rtol=1e-4, atol=2e-2):
+            raise AssertionError(f"K1 {kind} {label}: log scales differ "
+                                 f"(max {float((cg - cw).abs().max())})")
+        err = max(err, float((cg - cw).abs().max()))
+        ms = cuda_time(lambda: kern(*args), reps=5)
+        plain_ms = cuda_time(lambda: plain(*args), reps=1, warmup=0)
+        moved = nbytes(*args) + nbytes(*got)
+        bound_ms, bound_by = roofline(moved, 40.0 * B * Q * W)
+        log(f"K1 {kind}_tables {label} B={B} Q={Q} W={W} {type_name}: max "
+            f"abs err {err:.3g}, kernel {ms:.3f} ms, plain {plain_ms:.1f} "
+            f"ms, bound {bound_ms:.3f} ms")
+        out[kind] = dict(label=label, B=B, Q=Q, W=W, type=type_name, err=err,
+                         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by)
+        del got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_tables(rng, dev):
+    """K1 forward/backward at TABLE_SHAPES (see :func:`_tables_case`)."""
     out = {"fwd": [], "bwd": []}
-    for label, B, W in TABLE_SHAPES:
-        tpl = np.full((B, Q + 64), 4, np.int8)
-        qs = np.full((B, Q), 4, np.int8)
-        q_lens = np.zeros(B, np.int64)
-        t_lens = np.zeros(B, np.int64)
-        offs = np.zeros((B, Q + 1), np.int64)
-        for b in range(B):
-            t = sim.random_genome(rng, 2000 - int(rng.integers(0, 40)))
-            read = sim.noisy_read(rng, t, 0.05)[:Q]
-            tpl[b, :len(t)] = t
-            qs[b, :len(read)] = read
-            q_lens[b], t_lens[b] = len(read), len(t)
-            offs[b] = linear_offsets(len(read), len(t), Q, W)
-        strands = rng.random(B) < 0.5
-        prep = pt.prep_tables_inputs(qs, tpl, offs, q_lens, t_lens, params_f,
-                                     W, strands=strands, params_rev=params_r,
-                                     device=dev)
-        fwd_args, bwd_args, _aux = pt.kernel_inputs(prep, W)
-        for kind, args, kern, plain in (
-                ("fwd", fwd_args, pt.fwd_tables, pt.fwd_tables_plain),
-                ("bwd", bwd_args, pt.bwd_tables, pt.bwd_tables_plain)):
-            torch.cuda.synchronize()
-            got = kern(*args)
-            want = plain(*args)
-            torch.cuda.synchronize()
-            err = 0.0
-            for g, w in zip(got[:3], want[:3]):
-                if not torch.allclose(g, w, rtol=2e-3, atol=1e-5):
-                    raise AssertionError(f"K1 {kind} {label}: tables differ "
-                                         f"(max {float((g - w).abs().max())})")
-                err = max(err, float((g - w).abs().max()))
-            cg, cw = torch.cumsum(got[3], 1), torch.cumsum(want[3], 1)
-            if not torch.allclose(cg, cw, rtol=1e-4, atol=2e-2):
-                raise AssertionError(f"K1 {kind} {label}: log scales differ "
-                                     f"(max {float((cg - cw).abs().max())})")
-            err = max(err, float((cg - cw).abs().max()))
-            ms = cuda_time(lambda: kern(*args), reps=5)
-            plain_ms = cuda_time(lambda: plain(*args), reps=1, warmup=0)
-            moved = nbytes(*args) + nbytes(*got)
-            flops = 40.0 * B * Q * W
-            t_bytes = moved / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / FP32_OPS_PER_S * 1e3
-            log(f"K1 {kind}_tables {label} B={B} Q={Q} W={W}: max abs err "
-                f"{err:.3g}, kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
-                f"bound {max(t_bytes, t_ops):.3f} ms")
-            out[kind].append(dict(label=label, B=B, Q=Q, W=W, err=err, ms=ms,
-                                  plain_ms=plain_ms,
-                                  bound_ms=max(t_bytes, t_ops),
-                                  bound_by="bytes" if t_bytes >= t_ops
-                                  else "operations"))
-            del got, want
-            torch.cuda.empty_cache()
+    for shape in TABLE_SHAPES:
+        res = _tables_case(rng, dev, *shape)
+        for kind in out:
+            out[kind].append(res[kind])
     rows = []
     for kind, line in (("fwd", 197), ("bwd", 337)):
         first, *others = out[kind]
@@ -485,12 +523,16 @@ def check_tables(rng, dev):
             max_abs_err=max(o["err"] for o in out[kind]), ms=first["ms"],
             plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
             bound_by=first["bound_by"], library_ms=None,
-            shape=dict(B=first["B"], Q=Q, W=first["W"]))
+            shape=dict(B=first["B"], Q=first["Q"], W=first["W"]))
         for o in others:
-            row[f"at_{o['label']}"] = {k: o[k] for k in (
-                "B", "Q", "W", "ms", "plain_ms", "bound_ms")}
+            row[f"at_{o['label']}"] = _at_table(o)
         rows.append(row)
     return rows
+
+
+def _at_table(o):
+    return {k: o[k] for k in ("B", "Q", "W", "type", "ms", "plain_ms",
+                              "bound_ms")}
 
 
 def _pileup_pairs(rng, B, tlen, Qmult, W, err=0.05, jitter=40, short=0):
@@ -549,11 +591,14 @@ def _calibration_pairs(rng, B=256, seq_len=100, W=64):
 # K1l's shapes: model tuning's pileups (B 40 reads against a ~2 kb chunk;
 # a short read widens the band to 256), a read with an N, and the gain
 # calibration (B 256, Q 128, W 64); above 1024 (the last step), a short
-# read's band of 1152 and 2048
+# read's band of 1152 and 2048, and past 2048 (the wide form) 2176 on a
+# 2.3 kb chunk and 4096 on a 4.2 kb one
 LK_SHAPES = (("model_tune", 0, False), ("model_tune_W256", 150, False),
              ("model_tune_N", 0, True), ("gain_calibration", 0, False))
 LK_WIDE_SHAPES = (("model_tune_W1152", 1000, False),
-                  ("model_tune_W2048", 1900, False))
+                  ("model_tune_W2048", 1900, False),
+                  ("model_tune_W2176", 2050, False, 2300),
+                  ("model_tune_W4096", 3970, False, 4200))
 
 
 def check_lk(rng, dev):
@@ -577,7 +622,7 @@ def _at(r):
                               "bound_ms") if k in r}
 
 
-def _lk_case(rng, dev, label, short, with_n):
+def _lk_case(rng, dev, label, short, with_n, tlen=2000):
     """K1l on one layout against its plain version and, on reads without
     N, against K1f's lk; both within rtol 1e-4 / atol 2e-2."""
     import torch
@@ -591,7 +636,7 @@ def _lk_case(rng, dev, label, short, with_n):
     if label == "gain_calibration":
         tpl, qs, offs, q_lens, tlen, W = _calibration_pairs(rng)
     else:
-        tpl, qs, offs, q_lens, W = _pileup_pairs(rng, 40, 2000, 64, 128,
+        tpl, qs, offs, q_lens, W = _pileup_pairs(rng, 40, tlen, 64, 128,
                                                  short=short)
         tlen = len(tpl)
     if with_n:   # in-length N: emits with probability 0
@@ -636,13 +681,18 @@ def _lk_case(rng, dev, label, short, with_n):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-# the counts kernel's shapes: model tuning's pileups at W 128, with a read
-# that starts 22 bases late (row 0's cell weights pass float32's range
-# there; whole, they made its counts NaN), and with a short read that
-# widens the band to 256; above 1024 (the last step), 1152
+# the counts kernel's shapes (from float64 tables): model tuning's
+# pileups at W 128, with a read that starts 22 bases late (row 0's cell
+# weights pass float32's range there; whole, they made its counts NaN)
+# and 40 late (its opening deletion run is under float32's range), and
+# with a short read that widens the band to 256; above 1024 (the last
+# step), 1152, and past 2048 2176 and 4096 (B cut to 8 and 4: the float64
+# tables of B 40 at W 4096 would take 33 GB)
 COUNTS_SHAPES = (("model_tune", 0), ("model_tune_late22", 22),
-                 ("model_tune_W256", 150))
-COUNTS_WIDE_SHAPES = (("model_tune_W1152", 1000),)
+                 ("model_tune_late40", 40), ("model_tune_W256", 150))
+COUNTS_WIDE_SHAPES = (("model_tune_W1152", 1000),
+                      ("model_tune_W2176", 2050, 2300, 8),
+                      ("model_tune_W4096", 3970, 4200, 4))
 
 
 def check_counts(rng, dev):
@@ -696,7 +746,7 @@ def check_counts(rng, dev):
     return row
 
 
-def _counts_case(rng, dev, label, short):
+def _counts_case(rng, dev, label, short, tlen=2000, B=40):
     """The counts kernel on a model-tune pileup (B ~ 40, Q ~ 2.1 k) whose
     first read starts ``short`` bases late, against its plain version
     (rtol 1e-3 / atol 1e-4), bitwise equal in two calls, its M + I
@@ -708,7 +758,7 @@ def _counts_case(rng, dev, label, short):
     from jtk_tpu_torch.ops.phmm import PHMMParams
 
     params = PHMMParams.default(dev)
-    tpl, qs, offs, q_lens, W = _pileup_pairs(rng, 40, 2000, 64, 128,
+    tpl, qs, offs, q_lens, W = _pileup_pairs(rng, B, tlen, 64, 128,
                                              short=short)
     # model tuning's outlier filter (stages/model_tune.py): the band is
     # sized from every read, the gradient taken on reads whose lk per base
@@ -759,13 +809,23 @@ def _counts_case(rng, dev, label, short):
 
 def check_wide(rng, dev, rows):
     """The last step: the band widths above 1024 that the pipeline can
-    reach, K3 and its walk at W 1152, 2048, 4096 and 8192 (its limit), K1l
-    at LK_WIDE_SHAPES and counts at COUNTS_WIDE_SHAPES, each held to its
-    check at the main shapes; their times go into ``rows`` (the K3, walk,
-    K1l and counts rows of the kernels line, by name)."""
+    reach, K3 and its walk at W 1152, 2048, 4096 and 8192 (its limit), the
+    K1 tables at TABLE_WIDE_SHAPES, K1l at LK_WIDE_SHAPES and counts at
+    COUNTS_WIDE_SHAPES, each held to its check at the main shapes, and the
+    K1 family's refusal of W 4097; their times go into ``rows`` (the K3,
+    walk, K1f, K1b, K1l and counts rows of the kernels line, by name)."""
     import torch
 
     by_name = {r["name"]: r for r in rows}
+    refuse_k1_beyond_limit(dev)
+    for shape in TABLE_WIDE_SHAPES:
+        res = _tables_case(rng, dev, *shape)
+        for kind, name in (("fwd", "fwd_tables (K1f)"),
+                           ("bwd", "bwd_tables (K1b)")):
+            row = by_name[name]
+            row[f"at_{shape[0]}"] = _at_table(res[kind])
+            row["max_abs_err"] = max(row["max_abs_err"], res[kind]["err"])
+        torch.cuda.empty_cache()
     for Wd in (1152, 2048, 4096, 8192):
         dp, tb = _k3_wide(rng, dev, Wd)
         by_name["edit_dp (K3)"][f"at_W{Wd}"] = dp
@@ -783,18 +843,208 @@ def check_wide(rng, dev, rows):
         counts_row["max_abs_err"] = max(counts_row["max_abs_err"], r["err"])
 
 
+def refuse_k1_beyond_limit(dev):
+    """K1f, K1b, K1l and counts refuse a band of 4097 lanes on the card
+    with a ValueError that names the width, before any launch."""
+    import torch
+
+    from jtk_tpu_torch.ops import phmm_grad as pg
+    from jtk_tpu_torch.ops import phmm_lk as k1l
+    from jtk_tpu_torch.ops import phmm_tables as pt
+
+    B, Q, W = 1, 8, 4097
+    i32 = torch.int32
+    z = torch.zeros((B, W), device=dev)
+    zi = torch.zeros((B, W), dtype=i32, device=dev)
+    row = torch.zeros((B, Q), dtype=i32, device=dev)
+    one = torch.ones(B, dtype=i32, device=dev)
+    t8 = torch.zeros((8, 8), device=dev)
+    emis = torch.zeros((B, 5 * Q), device=dev)
+    t64 = torch.zeros((B, Q + 1, W), dtype=torch.float64, device=dev)
+    c64 = torch.zeros((B, Q + 1), dtype=torch.float64, device=dev)
+    calls = (
+        ("fwd_tables", lambda: pt.fwd_tables(
+            emis, row, row, zi, zi, z, z, z, one, one, one, t8, t8)),
+        ("bwd_tables", lambda: pt.bwd_tables(
+            emis, row, row, zi, zi, z, z, z, one, one, one, t8, t8)),
+        ("phmm_lk", lambda: k1l.phmm_lk(row, row, row, zi, zi, one, one, t8,
+                                        t8, t8)),
+        ("phmm_counts", lambda: pg.phmm_counts(
+            t64, t64, t64, t64, t64, t64, c64, c64,
+            torch.zeros((B, Q + 1, W), dtype=i32, device=dev), row, row, one,
+            torch.zeros(B, dtype=torch.float64, device=dev), t8, t8, t8)))
+    for name, call in calls:
+        try:
+            call()
+        except ValueError as e:
+            if "4097" not in str(e):
+                raise AssertionError(f"{name} at W 4097: unclear refusal "
+                                     f"({e})") from e
+            log(f"{name} at W 4097 refuses: {e}")
+            continue
+        raise AssertionError(f"{name} accepted W 4097")
+
+
+# ---------------------------------------------------------------------------
+# the MCMC chain
+# ---------------------------------------------------------------------------
+
+
+# (B chunks, S restarts, K, V, Rmax): path (b)'s clustered phase (27
+# chunks, K 2, V 8 after padding), the recursive path's K 4 on one chunk,
+# and K 8 / V 40 (two column groups of 32, a run-time K)
+CHAIN_SHAPES = ((27, 20, 2, 8, 128), (1, 20, 4, 12, 64), (3, 4, 8, 40, 96))
+CHAIN_K_STEPS = 100_000   # a clustering call's steps: min(2000 Rmax, 1e5)
+
+
+def _chain_case(rng, dev, B, S, K, V, Rmax):
+    """Planted clusters for B chunks (reads Rmax - 0..7 each), the chain's
+    start on the card (k-means++ and Lloyd from a seeded generator), its
+    inputs and the generator for its draws."""
+    import numpy as np
+    import torch
+
+    from jtk_tpu_torch.ops import cluster as pcl
+
+    X = np.zeros((B, Rmax, V), np.float32)
+    Rs = np.zeros(B, np.int64)
+    for b in range(B):
+        R = Rmax - int(rng.integers(0, 8))
+        truth = rng.integers(0, K, R)
+        x = rng.normal(0, 0.6, (R, V))
+        for c in range(K):
+            cols = np.arange(V) % K == c
+            x[np.ix_(truth == c, cols)] += 2.0
+            x[np.ix_(truth != c, cols)] -= 1.0
+        X[b, :R] = x
+        Rs[b] = R
+    size_lk = np.stack([pcl.poisson_size_table(Rmax, Rmax / K, K)] * B)
+    Xt = torch.tensor(X, device=dev)
+    Rt = torch.tensor(Rs, device=dev)
+    slt = torch.tensor(size_lk, device=dev)
+    w = (torch.arange(Rmax, device=dev)[None] < Rt[:, None]).float()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(1 << 30)))
+    g0 = pcl._gumbel((B, S, K, Rmax), gen, dev)
+    st = pcl.chain_start(Xt, w, slt, K, g0)
+    return dict(X=Xt, R=Rt, size_lk=slt, st=st, gen=gen, Xnp=X, Rnp=Rs,
+                size_np=size_lk)
+
+
+def chain_bound(B, S, K, V, Rmax, T):
+    """A draw block's bound (ms, and what bounds it), roofline: the draws,
+    X, the size tables and the chain state read once, the state written
+    once; ~20 K V operations a step and lane."""
+    lanes = B * S
+    state = lanes * (2 * Rmax + 3 * K * V + K + 2) * 4
+    moved = (3 * T * lanes + B * Rmax * V + B * (Rmax + 1)) * 4 + 2 * state
+    return roofline(moved, 20.0 * K * V * T * lanes)
+
+
+def chain_latency(K, T, sm_ghz):
+    """The chain's own bound (ms, and cycles a step): T steps of one step's
+    dependent chain at the highest SM clock, the load of assign[i], the
+    K-cluster column sum, the 5-step shuffle tree and its broadcast, the K
+    size terms and the accept test."""
+    cycles = (SMEM_LOAD_CYCLES + K * FP32_CYCLES + 5 * (SHFL_CYCLES +
+              FP32_CYCLES) + SHFL_CYCLES + K * FP32_CYCLES + 2 * FP32_CYCLES)
+    return T * cycles / sm_ghz / 1e6, cycles
+
+
+def check_chain(rng, dev, sm_ghz):
+    """The MCMC chain kernel against mcmc_chain_plain at CHAIN_SHAPES, from
+    the same start and the same draws, over four draw blocks: every state
+    tensor bit-exact after each block.  Timed per 1024-step launch (CUDA
+    events) beside the plain block, and per clustering call of
+    CHAIN_K_STEPS steps at path (b)'s shape (host clock, synchronised)."""
+    import numpy as np
+    import torch
+
+    from jtk_tpu_torch.ops import cluster as pcl
+
+    res = []
+    for B, S, K, V, Rmax in CHAIN_SHAPES:
+        case = _chain_case(rng, dev, B, S, K, V, Rmax)
+        st, X, size_lk = case["st"], case["X"], case["size_lk"]
+        plain = {k: v.clone() for k, v in st.items()}
+        for blk in range(4):
+            draws = pcl.block_draws(*pcl.generator_block(
+                case["gen"], (pcl.DRAW_BLOCK, B, S), K, dev), case["R"],
+                Rmax)
+            pcl.mcmc_chain(st, X, size_lk, *draws)
+            pcl.mcmc_chain_plain(plain, X, size_lk, *draws)
+            torch.cuda.synchronize()
+            for name, v in plain.items():
+                if not torch.equal(st[name], v):
+                    raise AssertionError(
+                        f"mcmc_chain B={B} S={S} K={K} V={V}: {name} differs "
+                        f"from the plain chain after block {blk}")
+        ms = cuda_time(lambda: pcl.mcmc_chain(st, X, size_lk, *draws),
+                       reps=5)
+        plain_ms = cuda_time(lambda: pcl.mcmc_chain_plain(
+            plain, X, size_lk, *draws), reps=1, warmup=0)
+        bound_ms, bound_by = chain_bound(B, S, K, V, Rmax, pcl.DRAW_BLOCK)
+        chain_ms, cycles = chain_latency(K, pcl.DRAW_BLOCK, sm_ghz)
+        log(f"mcmc_chain B={B} S={S} K={K} V={V} Rmax={Rmax}: bit-exact "
+            f"over 4 blocks, kernel {ms:.3f} ms a {pcl.DRAW_BLOCK}-step "
+            f"launch, plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}), its chain {chain_ms:.3f} ms ({cycles} cycles a "
+            f"step at {sm_ghz:.3f} GHz)")
+        res.append(dict(B=B, S=S, K=K, V=V, Rmax=Rmax, ms=ms,
+                        plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, chain_ms=chain_ms,
+                        chain_cycles_per_step=cycles))
+        del case, st, plain
+        torch.cuda.empty_cache()
+    # one clustering call at path (b)'s shape: the seeding, the aggregates,
+    # CHAIN_K_STEPS steps in blocks and the pick of the best restart
+    B, S, K, V, Rmax = CHAIN_SHAPES[0]
+    case = _chain_case(rng, dev, B, S, K, V, Rmax)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    assign, score = pcl.mcmc_cluster_batch(
+        case["Xnp"], case["Rnp"], case["size_np"], K, CHAIN_K_STEPS, S,
+        generator=gen, device=dev)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    if not np.isfinite(score).all():
+        raise AssertionError("mcmc_cluster_batch: a score is not finite")
+    blocks = -(-CHAIN_K_STEPS // pcl.DRAW_BLOCK)
+    log(f"mcmc_cluster_batch B={B} S={S} K={K} V={V} Rmax={Rmax}, "
+        f"{CHAIN_K_STEPS} steps ({blocks} launches): {call_s * 1e3:.1f} ms "
+        f"a call (the chain's bound {res[0]['chain_ms'] * blocks:.1f} ms)")
+    r0 = res[0]
+    row = dict(name="mcmc_chain (MCMC chain)", route="cuda",
+               source="jtk_tpu_torch/csrc/mcmc_chain.cu",
+               replaces="jtk_tpu/ops/cluster.py:184 (the lax.scan of "
+                        "mcmc_cluster_batch; no Pallas kernel)",
+               max_abs_err=0.0, ms=r0["ms"], plain_ms=r0["plain_ms"],
+               bound_ms=r0["bound_ms"], bound_by=r0["bound_by"],
+               library_ms=None, chain_ms=r0["chain_ms"],
+               k_call_ms=call_s * 1e3, k_call_steps=CHAIN_K_STEPS,
+               shape=dict(B=B, S=S, K=K, V=V, Rmax=Rmax))
+    for r in res[1:]:
+        row[f"at_B{r['B']}_S{r['S']}_K{r['K']}_V{r['V']}"] = {
+            k: r[k] for k in ("ms", "plain_ms", "bound_ms", "chain_ms")}
+    return row
+
+
 # ---------------------------------------------------------------------------
 # the slice: reads -> GFA
 # ---------------------------------------------------------------------------
 
 
 def launch_counters():
-    """The launch counters of the six kernel wrappers (K3's DP and walk, K1f,
-    K1b, K1l, counts), in the order of the kernels line."""
-    from jtk_tpu_torch.ops import (edit_dp, phmm_grad, phmm_lk,
+    """The launch counters of the seven kernel wrappers (K3's DP and walk,
+    K1f, K1b, K1l, counts, the MCMC chain), in the order of the kernels
+    line."""
+    from jtk_tpu_torch.ops import (cluster, edit_dp, phmm_grad, phmm_lk,
                                    phmm_tables)
     return [edit_dp.LAUNCHES, edit_dp.TB_LAUNCHES, phmm_tables.FWD_LAUNCHES,
-            phmm_tables.BWD_LAUNCHES, phmm_lk.LAUNCHES, phmm_grad.LAUNCHES]
+            phmm_tables.BWD_LAUNCHES, phmm_lk.LAUNCHES, phmm_grad.LAUNCHES,
+            cluster.CHAIN_LAUNCHES]
 
 
 class _LaunchCounts(logging.Filter):
@@ -835,7 +1085,7 @@ def run_slice(rng, counters):
     os.makedirs(OUT_DIR, exist_ok=True)
     # the stages' own timing lines (polish, cigar refresh, variant stats,
     # mcmc, consensus rounds) go to a log beside the outputs, each with the
-    # launch counts K3/walk/K1f/K1b/K1l/counts so far
+    # launch counts K3/walk/K1f/K1b/K1l/counts/chain so far
     handler = logging.FileHandler(os.path.join(OUT_DIR, "stages.log"), "w")
     handler.addFilter(_LaunchCounts(counters))
     handler.setFormatter(logging.Formatter(
@@ -970,7 +1220,10 @@ def _pipeline_in(rng, out):
     log(f"path (b) model tuning: {emis['pairs_off']} of {emis['pairs']} "
         f"pairs (over {emis['calls']} counts launches, "
         f"{emis['calls_with_off']} with any) emit M + I more than 1 % off "
-        f"their q_len; worst relative difference {emis['worst_rel']}")
+        f"their q_len; worst relative difference {emis['worst_rel']}; "
+        f"{emis['off_within_150']} of them start at most 150 bases late; "
+        f"(bases late at the start, bases early at the end) of each: "
+        f"{sorted(set(emis['off_start_late_end_early']))}")
     missing = [e for e in ("entry.json", "encoded.json", "clustered.json",
                            "de.json", "json", "gfa")
                if not os.path.exists(f"{stem}.{e}")]
@@ -1063,11 +1316,14 @@ def _random_pairs(rng, B, Q, W):
     return qs, rs, offs, q_lens, t_lens
 
 
-def _shape_call(kind, rng, dev, B, Q, W):
+def _shape_call(kind, rng, dev, B, Q, W, *rest):
     """A call of kernel ``kind`` (a launch counter's name) at launch shape
-    (B, Q, W) on synthetic pairs of that shape, and its bound (ms): the
+    (B, Q, W) (the tables' also with their type; the chain's is (B, S, K,
+    V, Rmax)) on synthetic pairs of that shape, and its bound (ms): the
     inputs read and outputs written once over the memory rate, or the
     operations of the rows these pairs need over the fp32 rate."""
+    import torch
+
     from jtk_tpu_torch.ops import edit_dp as k3
     from jtk_tpu_torch.ops import phmm_grad as pg
     from jtk_tpu_torch.ops import phmm_lk as k1l
@@ -1078,6 +1334,15 @@ def _shape_call(kind, rng, dev, B, Q, W):
         return roofline(nbytes(*args) + out_bytes, ops)[0]
 
     params = PHMMParams.default(dev)
+    if kind == "mcmc_chain":
+        from jtk_tpu_torch.ops import cluster as pcl
+        S, K, V, Rmax = Q, W, *rest
+        case = _chain_case(rng, dev, B, S, K, V, Rmax)
+        draws = pcl.block_draws(*pcl.generator_block(
+            case["gen"], (pcl.DRAW_BLOCK, B, S), K, dev), case["R"], Rmax)
+        return (lambda: pcl.mcmc_chain(case["st"], case["X"],
+                                       case["size_lk"], *draws),
+                chain_bound(B, S, K, V, Rmax, pcl.DRAW_BLOCK)[0])
     if kind in ("edit_dp", "edit_tb"):
         # K3 and its walk run every one of the Q rows of every pair
         args, off = _k3_random(rng, dev, B, Q, W)
@@ -1103,11 +1368,13 @@ def _shape_call(kind, rng, dev, B, Q, W):
         args = pg.counts_args(prep, W)
         return (lambda: pg.phmm_counts(*args),
                 bound(args, 4 * B * pg.N_COUNTS, 60.0 * W * (rows + B)))
-    fwd_args, bwd_args, _aux = pt.kernel_inputs(prep, W)
+    dtype = _table_type(rest[0] if rest else "f32")
+    fwd_args, bwd_args, _aux = pt.kernel_inputs(prep, W, dtype)
     args = fwd_args if kind == "fwd_tables" else bwd_args
     kern = pt.fwd_tables if kind == "fwd_tables" else pt.bwd_tables
+    size = 8 if dtype == torch.float64 else 4
     return (lambda: kern(*args),
-            bound(args, 4 * B * Q * (3 * W + 1), 40.0 * W * rows))
+            bound(args, size * B * Q * (3 * W + 1), 40.0 * W * rows))
 
 
 def time_path_shapes(rng, dev, path_shapes, top=3):
@@ -1195,7 +1462,12 @@ class EmissionCheck:
     """Wraps the counts kernel's wrapper for the length of a run and counts,
     on the card, the pairs whose M + I emission counts differ from their
     q_len by more than 1 % (each query base is emitted once): the late-start
-    fault of the counts (PERF.md §7).  Adds no host synchronisation."""
+    fault of the counts (PERF.md §7).  Each such pair is kept with how late
+    its read starts, the column of the backward table's largest cell at row
+    0 (a linear band starts at column 0), and how early it ends, the
+    template's end less the column of the forward table's largest cell at
+    the read's last row (where an end that falls under the EPS floor of
+    log(fin + EPS) shows).  Adds no host synchronisation."""
 
     def __enter__(self):
         import torch
@@ -1203,14 +1475,27 @@ class EmissionCheck:
         from jtk_tpu_torch.ops import phmm_grad as pg
         self.pg, self.orig = pg, pg.phmm_counts
         self.calls, self.off, self.pairs = 0, [], 0
-        self.worst = []
+        self.worst, self.where = [], []
 
         def wrapped(*a):
             out = self.orig(*a)
-            qlen = a[11].to(torch.float32)
+            fM, fI, fD, bM, bI, bD = a[:6]
+            rcs, shifts, ql = a[8], a[10], a[11]
+            qlen = ql.to(torch.float32)
             rel = (out[:, 9:].sum(1) - qlen).abs() / qlen.clamp(min=1)
-            self.off.append((rel > 0.01).sum())
+            bad = rel > 0.01
+            self.off.append(bad.sum())
             self.worst.append(rel.max())
+            q = ql.to(torch.int64)
+            b = torch.arange(len(q), device=q.device)
+            off = torch.cat([torch.zeros_like(shifts[:, :1]),
+                             torch.cumsum(shifts, 1)], 1)[b, q]
+            ks = torch.arange(rcs.shape[2], device=q.device)
+            t_len = off + torch.where(rcs[b, q] != 4, ks, -1).max(1).values
+            start = (bM[:, 0] + bI[:, 0] + bD[:, 0]).argmax(1)
+            end = off + (fM[b, q] + fI[b, q] + fD[b, q]).argmax(1)
+            self.where.append(torch.where(
+                bad[:, None], torch.stack([start, t_len - end], 1), -1))
             self.calls += 1
             self.pairs += len(qlen)
             return out
@@ -1225,12 +1510,18 @@ class EmissionCheck:
         import torch
         if not self.calls:
             return dict(calls=0, pairs=0, pairs_off=0, calls_with_off=0,
-                        worst_rel=None)
+                        worst_rel=None, off_start_late_end_early=[],
+                        off_within_150=0)
         off = torch.stack(self.off).cpu()
+        where = torch.cat(self.where).cpu()
+        where = sorted(tuple(int(x) for x in w) for w in where
+                       if int(w[0]) >= 0)
         return dict(calls=self.calls, pairs=self.pairs,
                     pairs_off=int(off.sum()),
                     calls_with_off=int((off > 0).sum()),
-                    worst_rel=float(torch.stack(self.worst).max()))
+                    worst_rel=float(torch.stack(self.worst).max()),
+                    off_start_late_end_early=where,
+                    off_within_150=sum(s <= 150 for s, _e in where))
 
 
 def dump_sam_split(ds, contigs, out):
@@ -1323,23 +1614,30 @@ def main() -> int:
         f"python {sys.version.split()[0]}; jtk_tpu_torch from {HERE}")
 
     t0 = time.time()
-    cuda_build.build(["edit_dp", "phmm_tables", "phmm_lk", "phmm_counts"])
+    cuda_build.build(LIBRARIES)
     log(f"build: {time.time() - t0:.1f} s")
     # the row-wavefront kernels keep a thread's band lanes in registers at
     # every geometry (ops/phmm_tables.py::tables_geometry,
-    # ops/edit_dp.py::edit_dp_geometry), and the counts kernel its 45
-    # accumulators: a spill of any of them breaks that
+    # ops/edit_dp.py::edit_dp_geometry; the K1 family's wide form its
+    # row's temporaries), the counts kernel its 45 accumulators and the
+    # chain its step: a spill of any of them breaks that
     spills = []
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "ptxas.log"), "w") as f:
+        for name, text in cuda_build.BUILD_LOG.items():
+            f.write(f"== {name}\n{text}\n")
     for name, text in cuda_build.BUILD_LOG.items():
         fn = ""
         for line in text.splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m:   # _Z17fwd_tables_kernelILi4ELi1EEv... -> fwd_tables_kernel<4,1>
+            if m:   # _Z17fwd_tables_kernelIfLi4ELi1EEv... -> ...<f,4,1>
                 fn = m.group(1)
-                mm = re.match(r"_Z\d+([A-Za-z_]\w*?)I((?:L[ib]\d+E)+)E", fn)
+                mm = re.match(r"_Z\d+([A-Za-z_]\w*?)I([fd]?)((?:L[ib]\d+E)+)E",
+                              fn)
                 if mm:
                     fn = (mm.group(1) + "<" + ",".join(
-                        re.findall(r"L[ib](\d+)E", mm.group(2))) + ">")
+                        ([mm.group(2)] if mm.group(2) else [])
+                        + re.findall(r"L[ib](\d+)E", mm.group(3))) + ">")
             elif "registers" in line or "spill" in line:
                 log(f"ptxas {name} {fn}: {line.strip()}")
                 m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
@@ -1363,6 +1661,8 @@ def main() -> int:
     rows.append(check_lk(rng, dev))
     torch.cuda.empty_cache()
     rows.append(check_counts(rng, dev))
+    torch.cuda.empty_cache()
+    rows.append(check_chain(rng, dev, sm_ghz))
     torch.cuda.empty_cache()
     check_wide(rng, dev, rows)
     torch.cuda.empty_cache()

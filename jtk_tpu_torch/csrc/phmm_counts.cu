@@ -14,21 +14,25 @@
 // With true f(i, j) = F[i, k] * exp(fcum[i]) and b(i, j) = B[i, k] *
 // exp(bcum[i]) (j = off[i] + k), an edge into row i weighs
 // exp(fcum[i-1] + bcum[i] - lk) and a cell of row i exp(fcum[i] + bcum[i]
-// - lk).  Each weight goes half to the forward and half to the backward
-// value (exp(c / 2), c / 2 capped at 88): whole, it passes float32's range
-// where F * B is tiny, and 0 * inf would make the counts NaN.  Rows past
-// q_len carry no counts.
+// - lk).  The tables, their cumulative log scales and lk are float64
+// (phmm_tables.cu's double form): a read that starts s bases late in its
+// template opens with a deletion run of weight ~tdd^(s-1), under float32's
+// range from s ~ 26.  Each weight goes half to the forward and half to the
+// backward value (exp(c / 2), c / 2 capped at HALF_CAP), so no product of
+// a table value and a weight leaves double's range; a cell's term, the
+// product of the two halves, is a posterior in [0, 1] and is summed in
+// float.  Rows past q_len carry no counts.
 //
-// Bound on the H100: bytes, the six (Q+1, W) f32 tables and the template
-// chars read once, 28 bytes a cell (~290 MB at B = 40, Q = 2048, W = 128);
-// ~60 flops a cell.  No count depends on another row's: a row reads the
+// Bound on the H100: bytes, the six (Q+1, W) f64 tables and the template
+// chars read once, 52 bytes a cell (~545 MB at B = 40, Q = 2048, W = 128);
+// ~60 operations a cell, half of them in double.  No count depends on another row's: a row reads the
 // stored tables at rows i and i - 1 and its left neighbour, so the work is
 // a parallel reduction over (B, Q+1, W).
 //
 // Design: a memory-bound reduction without block barriers or atomics.
 // - Pass 1 (counts_partial_kernel): one warp per unit of (pair, strip of
 //   STRIP rows, chunk of CHUNK = 128 band lanes); 4 lanes a thread, read
-//   with 16-byte loads coalesced along W (4-byte loads when W % 4 != 0).
+//   with 16-byte loads coalesced along W (scalar loads when W % 4 != 0).
 //   The warp walks its strip, keeping row i - 1's forward values in
 //   registers (one halo row at the strip's top); the neighbour lanes come
 //   by shuffle, and at the chunk's two edges by one scalar load.  The
@@ -57,20 +61,25 @@ constexpr int NC = 45;
 constexpr int CHUNK = 128;   // band lanes of a unit: 32 threads x 4
 constexpr int STRIP = 16;    // rows of a unit (<= 32: one lane a row)
 constexpr int WARPS = 4;     // units a block
-constexpr int MAX_W = 2048;
+constexpr int MAX_W = 4096;
 constexpr int GEOMETRY_ERROR = -2;
+constexpr double HALF_CAP = 700.0;   // e^700 < double's largest, 1.8e308
 
-// 4 consecutive floats of a row from lane k0 (0 at lanes >= W).
+// 4 consecutive doubles of a row from lane k0 (0 at lanes >= W).
 template <bool VEC>
-__device__ __forceinline__ float4 load4(const float* __restrict__ row, int k0,
-                                        int W) {
+__device__ __forceinline__ void load4(const double* __restrict__ row, int k0,
+                                      int W, double (&x)[4]) {
   if constexpr (VEC) {
-    return k0 < W ? *reinterpret_cast<const float4*>(row + k0)
-                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    if (k0 < W) {
+      const double2 a = *reinterpret_cast<const double2*>(row + k0);
+      const double2 b = *reinterpret_cast<const double2*>(row + k0 + 2);
+      x[0] = a.x; x[1] = a.y; x[2] = b.x; x[3] = b.y;
+    } else {
+      x[0] = x[1] = x[2] = x[3] = 0.0;
+    }
   } else {
-    return make_float4(k0 < W ? row[k0] : 0.f, k0 + 1 < W ? row[k0 + 1] : 0.f,
-                       k0 + 2 < W ? row[k0 + 2] : 0.f,
-                       k0 + 3 < W ? row[k0 + 3] : 0.f);
+#pragma unroll
+    for (int l = 0; l < 4; ++l) x[l] = k0 + l < W ? row[k0 + l] : 0.0;
   }
 }
 
@@ -87,10 +96,6 @@ __device__ __forceinline__ int4 load4i(const int32_t* __restrict__ row,
   }
 }
 
-__device__ __forceinline__ void unpack(float4 v, float (&x)[4]) {
-  x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(FULL_MASK, v, s);
@@ -100,13 +105,13 @@ __device__ __forceinline__ float warp_sum(float v) {
 template <bool VEC>
 __global__ void __launch_bounds__(32 * WARPS)
 counts_partial_kernel(
-    const float* __restrict__ fM, const float* __restrict__ fI,
-    const float* __restrict__ fD, const float* __restrict__ bM,
-    const float* __restrict__ bI, const float* __restrict__ bD,
-    const float* __restrict__ fcum, const float* __restrict__ bcum,
+    const double* __restrict__ fM, const double* __restrict__ fI,
+    const double* __restrict__ fD, const double* __restrict__ bM,
+    const double* __restrict__ bI, const double* __restrict__ bD,
+    const double* __restrict__ fcum, const double* __restrict__ bcum,
     const int32_t* __restrict__ rcs, const int32_t* __restrict__ qs,
     const int32_t* __restrict__ shifts, const int32_t* __restrict__ qlen,
-    const float* __restrict__ lk, const float* __restrict__ me,
+    const double* __restrict__ lk, const float* __restrict__ me,
     const float* __restrict__ ie, float* __restrict__ part, int B, int Q,
     int W, int strips, int chunks) {
   // me transposed, [query][ref]: a lane reads its ref code's emission of the
@@ -139,18 +144,19 @@ counts_partial_kernel(
   if (i0 < i1) {
     // the strip's row streams: lane s holds row i0 + s; s_in and s_row are
     // the halves of the weights of an edge into the row and of its cells
-    float s_in = 0.f, s_row = 0.f, ei = 0.f;
+    double s_in = 0.0, s_row = 0.0;
+    float ei = 0.f;
     int one = 0;
     {
       const int i = i0 + lane;
       if (lane < STRIP && i < i1) {
-        const float lkb = lk[b];
-        const float* fc = fcum + (size_t)b * Q1;
-        const float* bc = bcum + (size_t)b * Q1;
-        s_row = expf(fminf(0.5f * (fc[i] + bc[i] - lkb), 88.f));
+        const double lkb = lk[b];
+        const double* fc = fcum + (size_t)b * Q1;
+        const double* bc = bcum + (size_t)b * Q1;
+        s_row = exp(fmin(0.5 * (fc[i] + bc[i] - lkb), HALF_CAP));
         if (i >= 1) {
           const int32_t* q = qs + (size_t)b * Q;
-          s_in = expf(fminf(0.5f * (fc[i - 1] + bc[i] - lkb), 88.f));
+          s_in = exp(fmin(0.5 * (fc[i - 1] + bc[i] - lkb), HALF_CAP));
           qc = min(max(q[i - 1], 0), 7);
           qp = i >= 2 ? min(max(q[i - 2], 0), 7) : 4;
           one = shifts[(size_t)b * Q + i - 1] == 1;
@@ -159,35 +165,35 @@ counts_partial_kernel(
       }
     }
     // row i0 - 1's forward values (0 above row 0), and its lane k0 - 1
-    float P[3][4] = {}, pl[3] = {0.f, 0.f, 0.f};
-    const float* const F[3] = {fM + tb, fI + tb, fD + tb};
+    double P[3][4] = {}, pl[3] = {0.0, 0.0, 0.0};
+    const double* const F[3] = {fM + tb, fI + tb, fD + tb};
     if (i0 > 0) {
       const size_t o = (size_t)(i0 - 1) * W;
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
-        unpack(load4<VEC>(F[a] + o, k0, W), P[a]);
+        load4<VEC>(F[a] + o, k0, W, P[a]);
         if (lane == 0 && k0 > 0) pl[a] = F[a][o + k0 - 1];
       }
     }
     for (int i = i0; i < i1; ++i) {
       const int s = i - i0;
-      const float r_in = __shfl_sync(FULL_MASK, s_in, s);
-      const float r_row = __shfl_sync(FULL_MASK, s_row, s);
+      const double r_in = __shfl_sync(FULL_MASK, s_in, s);
+      const double r_row = __shfl_sync(FULL_MASK, s_row, s);
       const float r_ei = __shfl_sync(FULL_MASK, ei, s);
       const int r_qc = __shfl_sync(FULL_MASK, qc, s);
       const int r_one = __shfl_sync(FULL_MASK, one, s);
       const size_t o = (size_t)i * W;
-      float C[3][4], V[3][4];
-      unpack(load4<VEC>(fM + tb + o, k0, W), C[0]);
-      unpack(load4<VEC>(fI + tb + o, k0, W), C[1]);
-      unpack(load4<VEC>(fD + tb + o, k0, W), C[2]);
-      unpack(load4<VEC>(bM + tb + o, k0, W), V[0]);
-      unpack(load4<VEC>(bI + tb + o, k0, W), V[1]);
-      unpack(load4<VEC>(bD + tb + o, k0, W), V[2]);
+      double C[3][4], V[3][4];
+      load4<VEC>(fM + tb + o, k0, W, C[0]);
+      load4<VEC>(fI + tb + o, k0, W, C[1]);
+      load4<VEC>(fD + tb + o, k0, W, C[2]);
+      load4<VEC>(bM + tb + o, k0, W, V[0]);
+      load4<VEC>(bI + tb + o, k0, W, V[1]);
+      load4<VEC>(bD + tb + o, k0, W, V[2]);
       const int4 r4 = load4i<VEC>(rcs + tb + o, k0, W);
       const int R[4] = {r4.x, r4.y, r4.z, r4.w};
       // the chunk's edges: row i's lane k0 - 1, row i - 1's lane k0 + 4
-      float cl[3] = {0.f, 0.f, 0.f}, pr[3] = {0.f, 0.f, 0.f};
+      double cl[3] = {0.0, 0.0, 0.0}, pr[3] = {0.0, 0.0, 0.0};
       if (lane == 0 && k0 > 0) {
 #pragma unroll
         for (int a = 0; a < 3; ++a) cl[a] = F[a][o + k0 - 1];
@@ -196,7 +202,7 @@ counts_partial_kernel(
 #pragma unroll
         for (int a = 0; a < 3; ++a) pr[a] = F[a][o - W + k0 + 4];
       }
-      float Xl[3], Xr[3], Cl[3];   // lanes k0 - 1 (rows i-1, i), k0 + 4 (i-1)
+      double Xl[3], Xr[3], Cl[3];   // lanes k0 - 1 (rows i-1, i), k0 + 4 (i-1)
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
         Xl[a] = __shfl_up_sync(FULL_MASK, P[a][3], 1);
@@ -205,7 +211,7 @@ counts_partial_kernel(
         if (lane == 0) { Xl[a] = pl[a]; Cl[a] = cl[a]; }
         if (lane == 31) Xr[a] = pr[a];
       }
-      const float s_post = i >= 1 ? r_row : 0.f;
+      const double s_post = i >= 1 ? r_row : 0.0;
       float pm[4] = {0.f, 0.f, 0.f, 0.f}, pi = 0.f;
 #pragma unroll
       for (int l = 0; l < 4; ++l) {
@@ -213,25 +219,25 @@ counts_partial_kernel(
         // source's (xd, xu times r_in; xl times r_row), the backward one
         // the target's (gM, gI times r_in; gD times r_row)
         const float em = me_t[r_qc * 8 + (R[l] & 7)];
-        const float gM = em * V[0][l] * r_in;
-        const float gI = r_ei * V[1][l] * r_in;
-        const float gD = V[2][l] * r_row;
+        const double gM = em * V[0][l] * r_in;
+        const double gI = r_ei * V[1][l] * r_in;
+        const double gD = V[2][l] * r_row;
 #pragma unroll
         for (int a = 0; a < 3; ++a) {
           // sources: diagonal (i-1, j-1), up (i-1, j), left (i, j-1)
-          const float pd = l > 0 ? P[a][l - 1] : Xl[a];
-          const float pu = l < 3 ? P[a][l + 1] : Xr[a];
-          const float xd = (r_one ? P[a][l] : pd) * r_in;
-          const float xu = (r_one ? pu : P[a][l]) * r_in;
-          const float xl = (l > 0 ? C[a][l - 1] : Cl[a]) * r_row;
-          acc[3 * a] = fmaf(xd, gM, acc[3 * a]);
-          acc[3 * a + 1] = fmaf(xu, gI, acc[3 * a + 1]);
-          acc[3 * a + 2] = fmaf(xl, gD, acc[3 * a + 2]);
+          const double pd = l > 0 ? P[a][l - 1] : Xl[a];
+          const double pu = l < 3 ? P[a][l + 1] : Xr[a];
+          const double xd = (r_one ? P[a][l] : pd) * r_in;
+          const double xu = (r_one ? pu : P[a][l]) * r_in;
+          const double xl = (l > 0 ? C[a][l - 1] : Cl[a]) * r_row;
+          acc[3 * a] += (float)(xd * gM);
+          acc[3 * a + 1] += (float)(xu * gI);
+          acc[3 * a + 2] += (float)(xl * gD);
         }
-        const float post_m = (C[0][l] * r_row) * (V[0][l] * s_post);
+        const float post_m = (float)((C[0][l] * r_row) * (V[0][l] * s_post));
 #pragma unroll
         for (int c = 0; c < 4; ++c) pm[c] += R[l] == c ? post_m : 0.f;
-        pi = fmaf(C[1][l] * r_row, V[1][l] * s_post, pi);
+        pi += (float)((C[1][l] * r_row) * (V[1][l] * s_post));
       }
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
@@ -288,10 +294,11 @@ __global__ void counts_final_kernel(const float* __restrict__ part,
 // has (ops/phmm_grad.py::counts_geometry).  Returns 0, a CUDA error code, or
 // GEOMETRY_ERROR when the caller's geometry is not this library's.
 extern "C" int phmm_counts_launch(
-    const float* fM, const float* fI, const float* fD, const float* bM,
-    const float* bI, const float* bD, const float* fcum, const float* bcum,
-    const int32_t* rcs, const int32_t* qs, const int32_t* shifts,
-    const int32_t* qlen, const float* lk, const float* trans, const float* me,
+    const double* fM, const double* fI, const double* fD, const double* bM,
+    const double* bI, const double* bD, const double* fcum,
+    const double* bcum, const int32_t* rcs, const int32_t* qs,
+    const int32_t* shifts, const int32_t* qlen, const double* lk,
+    const float* trans, const float* me,
     const float* ie, float* part, float* out, int B, int Q, int W, int units,
     int vec, void* stream) {
   if (B == 0) return 0;

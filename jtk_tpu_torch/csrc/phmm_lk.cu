@@ -35,6 +35,10 @@
 //   emissions me[ref, q] of ref codes 0..3 and the insertion emission
 //   ie[q_prev, q] (q_prev = 4, the start row, at row 0).
 // - The loop stops at the pair's q_len.
+// - Above 2048 lanes, the wide form of the tables kernel: 16 lanes a
+//   thread, 8 warps a pair, the row's state (M, I, D, column, char of
+//   each lane) in shared memory (wb::Lanes), the row's temporaries in
+//   registers.
 #include <cstdint>
 
 #include "warp_band.cuh"
@@ -43,7 +47,14 @@
 // partial, [3..6] first lane's values, [7..9] last lane's values.
 constexpr int SM_SLOTS = 12;
 constexpr int GEOMETRY_ERROR = -2;
-constexpr int MAX_W = 2048;
+constexpr int MAX_W = 4096;
+constexpr int MAX_REG_LANES = 4;   // above, the row state is in shared memory
+
+// Dynamic shared memory of a block: the wide form's row state, three
+// floats and two ints a lane.
+__host__ __device__ constexpr int state_bytes(int L, int nthreads) {
+  return L > MAX_REG_LANES ? L * nthreads * 20 : 0;
+}
 
 // Warps of a block: 4 pairs of one warp, 2 of two, or one wider pair.
 __host__ __device__ constexpr int block_warps(int wpp) {
@@ -81,8 +92,11 @@ phmm_lk_kernel(const float* __restrict__ emis,
                const int32_t* __restrict__ tlen,
                const float* __restrict__ trans, float* __restrict__ out,
                int B, int Q, int W, int ppb) {
+  constexpr bool SMEM = L > MAX_REG_LANES;
+  constexpr int NT = 32 * block_warps(WPP);   // the block's threads
   __shared__ float sm[block_warps(WPP)][SM_SLOTS];
   __shared__ float streams[block_warps(WPP)][wb::STREAM_WORDS];
+  extern __shared__ __align__(16) unsigned char state[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wip = warp % WPP;              // warp within the pair
   const int w0 = warp - wip;               // the pair's first warp
@@ -111,8 +125,8 @@ phmm_lk_kernel(const float* __restrict__ emis,
   // partials s (one named barrier when WPP > 1).  e_out is the thread's
   // part of D at the next thread's first lane; the scan carries it, and
   // the thread's first lane takes the carry.
-  auto del_chain = [&](const float (&Mr)[L], const float (&Ir)[L],
-                       const float (&dmask)[L], float (&Dr)[L], float& s) {
+  auto del_chain = [&](const auto& Mr, const auto& Ir,
+                       const float (&dmask)[L], auto& Dr, float& s) {
     float c[L];
 #pragma unroll
     for (int l = 1; l < L; ++l) c[l] = md * Mr[l - 1] + id * Ir[l - 1];
@@ -142,8 +156,18 @@ phmm_lk_kernel(const float* __restrict__ emis,
 
   // T: the last row computed, before its scale.  Row 0: M at j = 0, the
   // Del chain along the row (D lives at columns 1..t_len).
-  float TM[L], TI[L], TD[L], dmask[L];
-  int j[L], rc[L];
+  wb::Lanes<float, L, SMEM, NT> TM, TI, TD;
+  wb::Lanes<int, L, SMEM, NT> j, rc;
+  {
+    float* st = reinterpret_cast<float*>(state);
+    int* si = reinterpret_cast<int*>(st + 3 * L * NT);
+    TM.bind(st, threadIdx.x);
+    TI.bind(st + L * NT, threadIdx.x);
+    TD.bind(st + 2 * L * NT, threadIdx.x);
+    j.bind(si, threadIdx.x);
+    rc.bind(si + L * NT, threadIdx.x);
+  }
+  float dmask[L];
 #pragma unroll
   for (int l = 0; l < L; ++l) {
     const bool v = l < nv;
@@ -304,11 +328,16 @@ phmm_lk_kernel(const float* __restrict__ emis,
 // The geometries this library is built for: (lanes per thread, warps per
 // pair), those of ops/phmm_tables.py::tables_geometry.
 #define LK_GEOMETRIES(X) \
-  X(1, 1) X(2, 1) X(4, 1) X(4, 2) X(4, 4) X(4, 8) X(4, 16)
+  X(1, 1) X(2, 1) X(4, 1) X(4, 2) X(4, 4) X(4, 8) X(4, 16) X(16, 8)
 
 #define LK_CASE(L_, WPP_)                                                   \
   if (lanes == L_ && warps == WPP_) {                                       \
-    phmm_lk_kernel<L_, WPP_><<<grid, block, 0, s>>>(                        \
+    const int smem = state_bytes(L_, 32 * block_warps(WPP_));               \
+    if (smem > 48 * 1024)                                                   \
+      cudaFuncSetAttribute(phmm_lk_kernel<L_, WPP_>,                        \
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,     \
+                           smem);                                           \
+    phmm_lk_kernel<L_, WPP_><<<grid, block, smem, s>>>(                     \
         emis, shifts, inc, rc0, j0, qlen, tlen, trans, out, B, Q, W, ppb);  \
     known = true;                                                           \
   }

@@ -44,15 +44,39 @@
 //   or at and past it (backward) are written after / before the loop with
 //   plain stores and a log scale of 0.
 // - Table rows are written as 16-byte stores of a thread's lanes.
+//
+// The wide form (W 2049..4096, and the float64 tables above 1024 lanes):
+// 8 or 16 lanes a thread and 8 warps a pair, the same row code with the
+// row's state (M, I, D, column, char of each lane) in shared memory
+// instead of registers (wb::Lanes), so that no thread's state spills; the
+// row's temporaries stay in registers.
+//
+// Scalar type: float, or double for the gradient's tables
+// (ops/phmm_grad.py): a read that starts s bases late in its template
+// opens with a deletion run of weight ~tdd^(s-1) against the row's other
+// cells (~1e-52 at s = 26 with tdd 0.01), under float's range in a row
+// scaled once; double reaches ~150 bases.  The emissions and transitions
+// stay float; the state, the Del chain's powers of tdd, the row scales
+// and the tables are of the type.
 #include <cstddef>
 #include <cstdint>
 
 #include "warp_band.cuh"
 
 // Per warp of a block: [0] scan total, [2] scale partial, [3..6] first
-// lane's values, [7..9] last lane's values (the char code as float bits).
+// lane's values, [7..9] last lane's values (the char code as bits of the
+// type).
 constexpr int SM_SLOTS = 12;
 constexpr int GEOMETRY_ERROR = -2;
+constexpr int MAX_W = 4096;
+constexpr int MAX_REG_LANES = 4;   // above, the row state is in shared memory
+
+// Dynamic shared memory of a block: the wide form's row state, three
+// values of the type and two ints a lane.
+template <typename T>
+__host__ __device__ constexpr int state_bytes(int L, int nthreads) {
+  return L > MAX_REG_LANES ? L * nthreads * (3 * (int)sizeof(T) + 8) : 0;
+}
 
 // Warps of a block: 4 pairs of one warp, 2 of two, or one wider pair.
 __host__ __device__ constexpr int block_warps(int wpp) {
@@ -77,17 +101,17 @@ __device__ __forceinline__ Trans load_trans(const float* t) {
 }
 
 // The three output tables at one thread's first lane of one row.
+template <typename T>
 struct TablePtrs {
-  float *M, *I, *D;
+  T *M, *I, *D;
 
-  // A thread's L lanes of each table: 16-byte stores when ``vec`` (row
-  // stride and first lane multiples of 4 floats), else lane by lane; only
-  // the first ``nv`` = W - k0 lanes are band lanes.
-  template <int L>
-  __device__ __forceinline__ void store(int nv, bool vec, const float (&m)[L],
-                                        const float (&i)[L],
-                                        const float (&d)[L]) const {
-    if constexpr (L % 4 == 0) {
+  // A thread's L lanes of each table: 16-byte stores when ``vec`` (float;
+  // row stride and first lane multiples of 4 floats), else lane by lane;
+  // only the first ``nv`` = W - k0 lanes are band lanes.
+  template <int L, class A>
+  __device__ __forceinline__ void store(int nv, bool vec, const A& m,
+                                        const A& i, const A& d) const {
+    if constexpr (L % 4 == 0 && sizeof(T) == 4) {
       if (vec) {
 #pragma unroll
         for (int g = 0; g < L; g += 4)
@@ -109,24 +133,27 @@ struct TablePtrs {
   __device__ __forceinline__ void step(ptrdiff_t n) { M += n; I += n; D += n; }
 };
 
-template <int L, int WPP>
+template <typename T, int L, int WPP>
 __global__ void __launch_bounds__(32 * block_warps(WPP))
 fwd_tables_kernel(const float* __restrict__ emis,
                   const int32_t* __restrict__ shifts,
                   const int32_t* __restrict__ inc,
                   const int32_t* __restrict__ rc0,
                   const int32_t* __restrict__ j0,
-                  const float* __restrict__ m0, const float* __restrict__ i0,
-                  const float* __restrict__ d0,
+                  const T* __restrict__ m0, const T* __restrict__ i0,
+                  const T* __restrict__ d0,
                   const int32_t* __restrict__ qlen,
                   const int32_t* __restrict__ tlen,
                   const int32_t* __restrict__ strand,
                   const float* __restrict__ trans,
-                  const float* __restrict__ trans2, float* __restrict__ outM,
-                  float* __restrict__ outI, float* __restrict__ outD,
-                  float* __restrict__ outLs, int B, int Q, int W, int ppb) {
-  __shared__ float sm[block_warps(WPP)][SM_SLOTS];
+                  const float* __restrict__ trans2, T* __restrict__ outM,
+                  T* __restrict__ outI, T* __restrict__ outD,
+                  T* __restrict__ outLs, int B, int Q, int W, int ppb) {
+  constexpr bool SMEM = L > MAX_REG_LANES;
+  constexpr int NT = 32 * block_warps(WPP);   // the block's threads
+  __shared__ T sm[block_warps(WPP)][SM_SLOTS];
   __shared__ float streams[block_warps(WPP)][wb::STREAM_WORDS];
+  extern __shared__ __align__(16) unsigned char state[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wip = warp % WPP;              // warp within the pair
   const int w0 = warp - wip;               // the pair's first warp
@@ -138,36 +165,45 @@ fwd_tables_kernel(const float* __restrict__ emis,
   const int wl = W - 1 - k0;               // local index of lane W - 1
   const bool vec = (W & 3) == 0;
   const Trans tr = load_trans(strand[b] > 0 ? trans2 : trans);
-  const float dd = tr.dd;
-  float a[5], am[5];
+  const T dd = tr.dd;
+  T a[5], am[5];
   wb::scan_powers(dd, L, a);
   wb::up_multipliers(a, lane, am);
-  const float powT = wb::ipow(dd, L * lane);   // warp input -> thread input
-  const float powW = wb::ipow(dd, 32 * L);     // across one warp
+  const T powT = wb::ipow(dd, L * lane);   // warp input -> thread input
+  const T powW = wb::ipow(dd, 32 * L);     // across one warp
   const int ql = min(max(qlen[b], 0), Q);
   const int tl = tlen[b];
   const size_t wbase = (size_t)b * W;
-  // T: the last row computed, before its scale (at first row 0, scaled)
-  float TM[L], TI[L], TD[L];
-  int j[L], rc[L];
+  // T*: the last row computed, before its scale (at first row 0, scaled)
+  wb::Lanes<T, L, SMEM, NT> TM, TI, TD;
+  wb::Lanes<int, L, SMEM, NT> j, rc;
+  {
+    T* st = reinterpret_cast<T*>(state);
+    int* si = reinterpret_cast<int*>(st + 3 * L * NT);
+    TM.bind(st, threadIdx.x);
+    TI.bind(st + L * NT, threadIdx.x);
+    TD.bind(st + 2 * L * NT, threadIdx.x);
+    j.bind(si, threadIdx.x);
+    rc.bind(si + L * NT, threadIdx.x);
+  }
 #pragma unroll
   for (int l = 0; l < L; ++l) {
     const bool v = l < nv;
-    TM[l] = v ? m0[wbase + k0 + l] : 0.f;
-    TI[l] = v ? i0[wbase + k0 + l] : 0.f;
-    TD[l] = v ? d0[wbase + k0 + l] : 0.f;
+    TM[l] = v ? m0[wbase + k0 + l] : T(0);
+    TI[l] = v ? i0[wbase + k0 + l] : T(0);
+    TD[l] = v ? d0[wbase + k0 + l] : T(0);
     j[l] = v ? j0[wbase + k0 + l] : NO_COLUMN;
     rc[l] = v ? rc0[wbase + k0 + l] : 4;
   }
   // edge lanes of the pair's neighbouring warps (0 at the band's ends)
-  float lM = 0.f, lI = 0.f, lD = 0.f, rM = 0.f, rI = 0.f, rD = 0.f;
+  T lM = 0, lI = 0, lD = 0, rM = 0, rI = 0, rD = 0;
   int rR = 4;
-  float* sw = sm[warp];
+  T* sw = sm[warp];
   auto exchange_edges = [&]() {
     if constexpr (WPP > 1) {
       if (lane == 0) {
         sw[3] = TM[0]; sw[4] = TI[0]; sw[5] = TD[0];
-        sw[6] = __int_as_float(rc[0]);
+        wb::int_to_slot(sw[6], rc[0]);
       }
       if (lane == 31) { sw[7] = TM[L - 1]; sw[8] = TI[L - 1]; sw[9] = TD[L - 1]; }
       wb::pair_sync(bar, WPP * 32);
@@ -176,13 +212,13 @@ fwd_tables_kernel(const float* __restrict__ emis,
       }
       if (lane == 31 && wip < WPP - 1) {
         rM = sm[warp + 1][3]; rI = sm[warp + 1][4]; rD = sm[warp + 1][5];
-        rR = __float_as_int(sm[warp + 1][6]);
+        rR = wb::slot_to_int(sm[warp + 1][6]);
       }
     }
   };
-  // the sum of the row in T over the pair (the row's scale, less EPS)
+  // the sum of the row in T* over the pair (the row's scale, less EPS)
   auto row_sum = [&]() {
-    float s = 0.f;
+    T s = 0;
 #pragma unroll
     for (int l = 0; l < L; ++l) s += TM[l] + TI[l] + TD[l];
     return wb::warp_sum(s);
@@ -192,8 +228,8 @@ fwd_tables_kernel(const float* __restrict__ emis,
   const int32_t* srow = shifts + (size_t)b * Q;
   const int32_t* irow = inc + (size_t)b * Q;
   const size_t tb = (size_t)b * Q * W + k0;
-  TablePtrs out{outM + tb, outI + tb, outD + tb};
-  float* oLs = outLs + (size_t)b * Q;
+  TablePtrs<T> out{outM + tb, outI + tb, outD + tb};
+  T* oLs = outLs + (size_t)b * Q;
   wb::RowTile cur;
   cur.buf = streams[warp];
   cur.next = 0;
@@ -208,21 +244,21 @@ fwd_tables_kernel(const float* __restrict__ emis,
   // row's own chain and is applied at its end.
   for (int r = 0; r < ql; ++r) {           // every row here is live
     const wb::Row nrw = cur.row(src + 1);  // the next row's streams
-    float s = row_sum();
-    float Mr[L], Ir[L];
+    T s = row_sum();
+    T Mr[L], Ir[L];
     int rn[L];
     if (rw.sv == 1) {
       // diagonal from the same lane, up from lane k + 1
-      float eM = __shfl_down_sync(FULL_MASK, TM[0], 1);
-      float eI = __shfl_down_sync(FULL_MASK, TI[0], 1);
-      float eD = __shfl_down_sync(FULL_MASK, TD[0], 1);
+      T eM = __shfl_down_sync(FULL_MASK, TM[0], 1);
+      T eI = __shfl_down_sync(FULL_MASK, TI[0], 1);
+      T eD = __shfl_down_sync(FULL_MASK, TD[0], 1);
       int eR = __shfl_down_sync(FULL_MASK, rc[0], 1);
       if (lane == 31) { eM = rM; eI = rI; eD = rD; eR = rR; }
 #pragma unroll
       for (int l = 0; l < L; ++l) {
-        const float uM = l + 1 < L ? TM[l + 1] : eM;
-        const float uI = l + 1 < L ? TI[l + 1] : eI;
-        const float uD = l + 1 < L ? TD[l + 1] : eD;
+        const T uM = l + 1 < L ? TM[l + 1] : eM;
+        const T uI = l + 1 < L ? TI[l + 1] : eI;
+        const T uD = l + 1 < L ? TD[l + 1] : eD;
         const int ur = l + 1 < L ? rc[l + 1] : eR;
         rn[l] = l == wl ? rw.nc : ur;
         Mr[l] = tr.mm * TM[l] + tr.im * TI[l] + tr.dm * TD[l];
@@ -230,15 +266,15 @@ fwd_tables_kernel(const float* __restrict__ emis,
       }
     } else {
       // diagonal from lane k - 1, up from the same lane
-      float eM = __shfl_up_sync(FULL_MASK, TM[L - 1], 1);
-      float eI = __shfl_up_sync(FULL_MASK, TI[L - 1], 1);
-      float eD = __shfl_up_sync(FULL_MASK, TD[L - 1], 1);
+      T eM = __shfl_up_sync(FULL_MASK, TM[L - 1], 1);
+      T eI = __shfl_up_sync(FULL_MASK, TI[L - 1], 1);
+      T eD = __shfl_up_sync(FULL_MASK, TD[L - 1], 1);
       if (lane == 0) { eM = lM; eI = lI; eD = lD; }
 #pragma unroll
       for (int l = 0; l < L; ++l) {
-        const float dM = l > 0 ? TM[l - 1] : eM;
-        const float dI = l > 0 ? TI[l - 1] : eI;
-        const float dD = l > 0 ? TD[l - 1] : eD;
+        const T dM = l > 0 ? TM[l - 1] : eM;
+        const T dI = l > 0 ? TI[l - 1] : eI;
+        const T dD = l > 0 ? TD[l - 1] : eD;
         rn[l] = rc[l];
         Mr[l] = tr.mm * dM + tr.im * dI + tr.dm * dD;
         Ir[l] = tr.mi * TM[l] + tr.ii * TI[l] + tr.di * TD[l];
@@ -259,39 +295,39 @@ fwd_tables_kernel(const float* __restrict__ emis,
     // Del chain D[k] = c[k] + dd D[k-1], c[k] = md Mrow[k-1] + id Irow[k-1].
     // e_out is the thread's part of D at the next thread's first lane; the
     // scan carries it, and the thread's first lane takes the carry E_in.
-    float c[L];
+    T c[L];
 #pragma unroll
     for (int l = 1; l < L; ++l) c[l] = tr.md * Mr[l - 1] + tr.id * Ir[l - 1];
-    float z = 0.f;
+    T z = 0;
 #pragma unroll
-    for (int l = 1; l < L; ++l) z = fmaf(dd, z, c[l]);
-    const float e_out = fmaf(dd, z, tr.md * Mr[L - 1] + tr.id * Ir[L - 1]);
-    const float E = wb::warp_linrec_up(e_out, am);
-    float Ein = __shfl_up_sync(FULL_MASK, E, 1);
-    if (lane == 0) Ein = 0.f;
-    float G = 0.f;   // D at the warp's first lane
+    for (int l = 1; l < L; ++l) z = wb::fma_t(dd, z, c[l]);
+    const T e_out = wb::fma_t(dd, z, tr.md * Mr[L - 1] + tr.id * Ir[L - 1]);
+    const T E = wb::warp_linrec_up(e_out, am);
+    T Ein = __shfl_up_sync(FULL_MASK, E, 1);
+    if (lane == 0) Ein = 0;
+    T G = 0;   // D at the warp's first lane
     if constexpr (WPP > 1) {
       if (lane == 31) sw[0] = E;
       if (lane == 0) sw[2] = s;
       wb::pair_sync(bar, WPP * 32);
       for (int w = 0; w < wip; ++w) G = sm[w0 + w][0] + powW * G;
-      s = 0.f;
+      s = 0;
       for (int w = 0; w < WPP; ++w) s += sm[w0 + w][2];
     }
-    float Dr[L];
-    float y = Ein + powT * G;
+    T Dr[L];
+    T y = Ein + powT * G;
 #pragma unroll
     for (int l = 0; l < L; ++l) {
-      if (l > 0) y = fmaf(dd, y, c[l]);
+      if (l > 0) y = wb::fma_t(dd, y, c[l]);
       Dr[l] = y * dmask[l];
     }
-    const float inv = r == 0 ? 1.f : wb::rcp_approx(s + 1e-30f);
+    const T inv = r == 0 ? T(1) : wb::rcp_approx(s + T(1e-30));
     if (r > 0) {                           // row r - 1, scaled
 #pragma unroll
       for (int l = 0; l < L; ++l) { TM[l] *= inv; TI[l] *= inv; TD[l] *= inv; }
-      out.store<L>(nv, vec, TM, TI, TD);
+      out.template store<L>(nv, vec, TM, TI, TD);
       out.step(W);
-      if (wip == 0 && lane == 0) oLs[r - 1] = s + 1e-30f;
+      if (wip == 0 && lane == 0) oLs[r - 1] = s + T(1e-30);
     }
 #pragma unroll
     for (int l = 0; l < L; ++l) {
@@ -308,49 +344,53 @@ fwd_tables_kernel(const float* __restrict__ emis,
     }
   }
   if (ql > 0) {                            // the last row, scaled
-    float s = row_sum();
+    T s = row_sum();
     if constexpr (WPP > 1) {
       if (lane == 0) sw[2] = s;
       wb::pair_sync(bar, WPP * 32);
-      s = 0.f;
+      s = 0;
       for (int w = 0; w < WPP; ++w) s += sm[w0 + w][2];
     }
-    const float inv = wb::rcp_approx(s + 1e-30f);
+    const T inv = wb::rcp_approx(s + T(1e-30));
 #pragma unroll
     for (int l = 0; l < L; ++l) { TM[l] *= inv; TI[l] *= inv; TD[l] *= inv; }
-    out.store<L>(nv, vec, TM, TI, TD);
+    out.template store<L>(nv, vec, TM, TI, TD);
     out.step(W);
-    if (wip == 0 && lane == 0) oLs[ql - 1] = s + 1e-30f;
+    if (wip == 0 && lane == 0) oLs[ql - 1] = s + T(1e-30);
   }
   // rows past q_len repeat the frozen state
   for (int r = ql; r < Q; ++r) {
-    out.store<L>(nv, vec, TM, TI, TD);
+    out.template store<L>(nv, vec, TM, TI, TD);
     out.step(W);
   }
   if (wip == 0) {                          // scales -> log scales
     __syncwarp();
-    for (int r = lane; r < Q; r += 32) oLs[r] = r < ql ? logf(oLs[r]) : 0.f;
+    for (int r = lane; r < Q; r += 32)
+      oLs[r] = r < ql ? wb::log_t(oLs[r]) : T(0);
   }
 }
 
-template <int L, int WPP>
+template <typename T, int L, int WPP>
 __global__ void __launch_bounds__(32 * block_warps(WPP))
 bwd_tables_kernel(const float* __restrict__ emis,
                   const int32_t* __restrict__ shifts,
                   const int32_t* __restrict__ inc,
                   const int32_t* __restrict__ rcq,
                   const int32_t* __restrict__ jq,
-                  const float* __restrict__ bm0, const float* __restrict__ bi0,
-                  const float* __restrict__ bd0,
+                  const T* __restrict__ bm0, const T* __restrict__ bi0,
+                  const T* __restrict__ bd0,
                   const int32_t* __restrict__ qlen,
                   const int32_t* __restrict__ tlen,
                   const int32_t* __restrict__ strand,
                   const float* __restrict__ trans,
-                  const float* __restrict__ trans2, float* __restrict__ outM,
-                  float* __restrict__ outI, float* __restrict__ outD,
-                  float* __restrict__ outLs, int B, int Q, int W, int ppb) {
-  __shared__ float sm[block_warps(WPP)][SM_SLOTS];
+                  const float* __restrict__ trans2, T* __restrict__ outM,
+                  T* __restrict__ outI, T* __restrict__ outD,
+                  T* __restrict__ outLs, int B, int Q, int W, int ppb) {
+  constexpr bool SMEM = L > MAX_REG_LANES;
+  constexpr int NT = 32 * block_warps(WPP);   // the block's threads
+  __shared__ T sm[block_warps(WPP)][SM_SLOTS];
   __shared__ float streams[block_warps(WPP)][wb::STREAM_WORDS];
+  extern __shared__ __align__(16) unsigned char state[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wip = warp % WPP;
   const int w0 = warp - wip;
@@ -361,66 +401,77 @@ bwd_tables_kernel(const float* __restrict__ emis,
   const int nv = W - k0;
   const bool vec = (W & 3) == 0;
   const Trans tr = load_trans(strand[b] > 0 ? trans2 : trans);
-  const float dd = tr.dd;
-  float a[5], am[5];
+  const T dd = tr.dd;
+  T a[5], am[5];
   wb::scan_powers(dd, L, a);
   wb::down_multipliers(a, lane, am);
-  const float powT = wb::ipow(dd, L * (31 - lane) + 1);  // next warp -> thread
-  const float powW = wb::ipow(dd, 32 * L);               // across one warp
+  const T powT = wb::ipow(dd, L * (31 - lane) + 1);  // next warp -> thread
+  const T powW = wb::ipow(dd, 32 * L);               // across one warp
   const int ql = min(max(qlen[b], 0), Q);
   const int tl = tlen[b];
   const size_t wbase = (size_t)b * W;
-  // T: the last row computed (row i + 1), before its scale (at first the
+  // T*: the last row computed (row i + 1), before its scale (at first the
   // scaled init at row q_len)
-  float TM[L], TI[L], TD[L], vmask[L];
-  int j[L], rc[L];   // rc: r[off[i] + k] at the current row; j: off[i] + k
+  wb::Lanes<T, L, SMEM, NT> TM, TI, TD;
+  // rc: r[off[i] + k] at the current row; j: off[i] + k
+  wb::Lanes<int, L, SMEM, NT> j, rc;
+  {
+    T* st = reinterpret_cast<T*>(state);
+    int* si = reinterpret_cast<int*>(st + 3 * L * NT);
+    TM.bind(st, threadIdx.x);
+    TI.bind(st + L * NT, threadIdx.x);
+    TD.bind(st + 2 * L * NT, threadIdx.x);
+    j.bind(si, threadIdx.x);
+    rc.bind(si + L * NT, threadIdx.x);
+  }
+  float vmask[L];
 #pragma unroll
   for (int l = 0; l < L; ++l) {
     const bool v = l < nv;
-    TM[l] = v ? bm0[wbase + k0 + l] : 0.f;
-    TI[l] = v ? bi0[wbase + k0 + l] : 0.f;
-    TD[l] = v ? bd0[wbase + k0 + l] : 0.f;
+    TM[l] = v ? bm0[wbase + k0 + l] : T(0);
+    TI[l] = v ? bi0[wbase + k0 + l] : T(0);
+    TD[l] = v ? bd0[wbase + k0 + l] : T(0);
     j[l] = v ? jq[wbase + k0 + l] : NO_COLUMN;
     rc[l] = v ? rcq[wbase + k0 + l] : 4;
     vmask[l] = v ? 1.f : 0.f;
   }
   const size_t tb = (size_t)b * Q * W + k0;
-  float* oLs = outLs + (size_t)b * Q;
+  T* oLs = outLs + (size_t)b * Q;
   // rows at or past q_len keep the init state
-  TablePtrs out{outM + tb + (size_t)ql * W, outI + tb + (size_t)ql * W,
-                outD + tb + (size_t)ql * W};
+  TablePtrs<T> out{outM + tb + (size_t)ql * W, outI + tb + (size_t)ql * W,
+                   outD + tb + (size_t)ql * W};
   for (int i = ql; i < Q; ++i) {
-    out.store<L>(nv, vec, TM, TI, TD);
+    out.template store<L>(nv, vec, TM, TI, TD);
     out.step(W);
   }
-  float lI = 0.f, rM = 0.f;
+  T lI = 0, rM = 0;
   int lR = 4;
-  float* sw = sm[warp];
+  T* sw = sm[warp];
   auto exchange_edges = [&]() {
     if constexpr (WPP > 1) {
       if (lane == 0) sw[3] = TM[0];
-      if (lane == 31) { sw[7] = TI[L - 1]; sw[8] = __int_as_float(rc[L - 1]); }
+      if (lane == 31) { sw[7] = TI[L - 1]; wb::int_to_slot(sw[8], rc[L - 1]); }
       wb::pair_sync(bar, WPP * 32);
       if (lane == 0 && wip > 0) {
-        lI = sm[warp - 1][7]; lR = __float_as_int(sm[warp - 1][8]);
+        lI = sm[warp - 1][7]; lR = wb::slot_to_int(sm[warp - 1][8]);
       }
       if (lane == 31 && wip < WPP - 1) rM = sm[warp + 1][3];
     }
   };
-  // the max of the row in T over the pair (the row's scale, less EPS)
+  // the max of the row in T* over the pair (the row's scale, less EPS)
   auto row_max = [&]() {
-    float m = 0.f;
+    T m = 0;
 #pragma unroll
-    for (int l = 0; l < L; ++l) m = fmaxf(m, TM[l] + TI[l] + TD[l]);
+    for (int l = 0; l < L; ++l) m = wb::max_t(m, TM[l] + TI[l] + TD[l]);
     return wb::warp_max(m);
   };
   exchange_edges();
   const float* em = emis + (size_t)b * 5 * Q;
   const int32_t* srow = shifts + (size_t)b * Q;
   const int32_t* irow = inc + (size_t)b * Q;
-  out = TablePtrs{outM + tb + (size_t)(ql - 1) * W,
-                  outI + tb + (size_t)(ql - 1) * W,
-                  outD + tb + (size_t)(ql - 1) * W};
+  out = TablePtrs<T>{outM + tb + (size_t)(ql - 1) * W,
+                     outI + tb + (size_t)(ql - 1) * W,
+                     outD + tb + (size_t)(ql - 1) * W};
   wb::RowTile cur;
   cur.buf = streams[warp];
   cur.next = 0;
@@ -434,12 +485,12 @@ bwd_tables_kernel(const float* __restrict__ emis,
   // forward kernel).
   for (int n = 0; n < ql; ++n) {
     const wb::Row nrw = cur.row(src + 1);
-    float m = row_max();
-    float M1[L], I1[L];
+    T m = row_max();
+    T M1[L], I1[L];
     int ri[L];
     if (rw.sv == 1) {
       // I from lane k - 1, M from the same lane; chars move right
-      float eI = __shfl_up_sync(FULL_MASK, TI[L - 1], 1);
+      T eI = __shfl_up_sync(FULL_MASK, TI[L - 1], 1);
       int eR = __shfl_up_sync(FULL_MASK, rc[L - 1], 1);
       if (lane == 0) { eI = lI; eR = k0 == 0 ? rw.nc : lR; }
 #pragma unroll
@@ -449,7 +500,7 @@ bwd_tables_kernel(const float* __restrict__ emis,
         ri[l] = l > 0 ? rc[l - 1] : eR;
       }
     } else {
-      float eM = __shfl_down_sync(FULL_MASK, TM[0], 1);
+      T eM = __shfl_down_sync(FULL_MASK, TM[0], 1);
       if (lane == 31) eM = rM;
 #pragma unroll
       for (int l = 0; l < L; ++l) {
@@ -458,7 +509,8 @@ bwd_tables_kernel(const float* __restrict__ emis,
         ri[l] = rc[l];
       }
     }
-    float u[L], v[L], c[L], okm[L];
+    T u[L], v[L], c[L];
+    float okm[L];
 #pragma unroll
     for (int l = 0; l < L; ++l) {
       const int ji = j[l] - rw.sv;
@@ -471,43 +523,43 @@ bwd_tables_kernel(const float* __restrict__ emis,
       rc[l] = ri[l];
     }
     // reverse Del chain D[k] = c[k] + dd D[k+1]
-    float z = 0.f;
+    T z = 0;
 #pragma unroll
-    for (int l = L - 1; l >= 0; --l) z = fmaf(dd, z, c[l]);
-    const float Y = wb::warp_linrec_down(z, am);
-    float Yn = __shfl_down_sync(FULL_MASK, Y, 1);
-    if (lane == 31) Yn = 0.f;
-    float Dn = 0.f;   // D at the first lane of the next warp
+    for (int l = L - 1; l >= 0; --l) z = wb::fma_t(dd, z, c[l]);
+    const T Y = wb::warp_linrec_down(z, am);
+    T Yn = __shfl_down_sync(FULL_MASK, Y, 1);
+    if (lane == 31) Yn = 0;
+    T Dn = 0;   // D at the first lane of the next warp
     if constexpr (WPP > 1) {
       if (lane == 0) { sw[0] = Y; sw[2] = m; }
       wb::pair_sync(bar, WPP * 32);
       for (int w = WPP - 1; w > wip; --w) Dn = sm[w0 + w][0] + powW * Dn;
       m = sm[w0][2];
-      for (int w = 1; w < WPP; ++w) m = fmaxf(m, sm[w0 + w][2]);
+      for (int w = 1; w < WPP; ++w) m = wb::max_t(m, sm[w0 + w][2]);
     }
-    float Dr[L];
-    float y = dd * Yn + powT * Dn;
+    T Dr[L];
+    T y = dd * Yn + powT * Dn;
 #pragma unroll
     for (int l = L - 1; l >= 0; --l) {
-      y = l == L - 1 ? c[l] + y : fmaf(dd, y, c[l]);
+      y = l == L - 1 ? c[l] + y : wb::fma_t(dd, y, c[l]);
       Dr[l] = y;
     }
-    float wn = __shfl_down_sync(FULL_MASK, Dr[0], 1);
+    T wn = __shfl_down_sync(FULL_MASK, Dr[0], 1);
     if (lane == 31) wn = Dn;
-    float Mr[L], Ir[L];
+    T Mr[L], Ir[L];
 #pragma unroll
     for (int l = 0; l < L; ++l) {
-      const float w = l + 1 < L ? Dr[l + 1] : wn;
+      const T w = l + 1 < L ? Dr[l + 1] : wn;
       Mr[l] = (tr.mm * u[l] + tr.mi * v[l] + tr.md * w) * okm[l];
       Ir[l] = (tr.im * u[l] + tr.ii * v[l] + tr.id * w) * okm[l];
     }
-    const float inv = n == 0 ? 1.f : wb::rcp_approx(m + 1e-30f);
+    const T inv = n == 0 ? T(1) : wb::rcp_approx(m + T(1e-30));
     if (n > 0) {                           // row i + 1, scaled
 #pragma unroll
       for (int l = 0; l < L; ++l) { TM[l] *= inv; TI[l] *= inv; TD[l] *= inv; }
-      out.store<L>(nv, vec, TM, TI, TD);
+      out.template store<L>(nv, vec, TM, TI, TD);
       out.step(-W);
-      if (wip == 0 && lane == 0) oLs[ql - n] = m + 1e-30f;
+      if (wip == 0 && lane == 0) oLs[ql - n] = m + T(1e-30);
     }
 #pragma unroll
     for (int l = 0; l < L; ++l) {
@@ -524,70 +576,90 @@ bwd_tables_kernel(const float* __restrict__ emis,
     }
   }
   if (ql > 0) {                            // row 0, scaled
-    float m = row_max();
+    T m = row_max();
     if constexpr (WPP > 1) {
       if (lane == 0) sw[2] = m;
       wb::pair_sync(bar, WPP * 32);
       m = sm[w0][2];
-      for (int w = 1; w < WPP; ++w) m = fmaxf(m, sm[w0 + w][2]);
+      for (int w = 1; w < WPP; ++w) m = wb::max_t(m, sm[w0 + w][2]);
     }
-    const float inv = wb::rcp_approx(m + 1e-30f);
+    const T inv = wb::rcp_approx(m + T(1e-30));
 #pragma unroll
     for (int l = 0; l < L; ++l) { TM[l] *= inv; TI[l] *= inv; TD[l] *= inv; }
-    out.store<L>(nv, vec, TM, TI, TD);
-    if (wip == 0 && lane == 0) oLs[0] = m + 1e-30f;
+    out.template store<L>(nv, vec, TM, TI, TD);
+    if (wip == 0 && lane == 0) oLs[0] = m + T(1e-30);
   }
   if (wip == 0) {                          // scales -> log scales
     __syncwarp();
-    for (int i = lane; i < Q; i += 32) oLs[i] = i < ql ? logf(oLs[i]) : 0.f;
+    for (int i = lane; i < Q; i += 32)
+      oLs[i] = i < ql ? wb::log_t(oLs[i]) : T(0);
   }
 }
 
-// The geometries this library is built for: (lanes per thread, warps per
-// pair).  ops/phmm_tables.py::tables_geometry picks one of them.
-#define TABLE_GEOMETRIES(X) \
-  X(1, 1) X(2, 1) X(4, 1) X(4, 2) X(4, 4) X(4, 8) X(4, 16)
+// The geometries this library is built for, by type: (lanes per thread,
+// warps per pair).  ops/phmm_tables.py::tables_geometry picks one of them:
+// the register form up to 4 lanes a thread, the wide form (state in shared
+// memory) at 8 and 16 lanes and 8 warps; double takes the wide form above
+// 1024 lanes, where the register form's 16 warps (512 threads, so 128
+// registers a thread) would spill its state.
+#define TABLE_GEOMETRIES_F32(X) \
+  X(1, 1) X(2, 1) X(4, 1) X(4, 2) X(4, 4) X(4, 8) X(4, 16) X(16, 8)
+#define TABLE_GEOMETRIES_F64(X) \
+  X(1, 1) X(2, 1) X(4, 1) X(4, 2) X(4, 4) X(4, 8) X(8, 8) X(16, 8)
 
-#define TABLE_ARGS                                                          \
+#define TABLE_ARGS(T)                                                       \
   const float *emis, const int32_t *shifts, const int32_t *inc,             \
-      const int32_t *rc0, const int32_t *j0, const float *m0,               \
-      const float *i0, const float *d0, const int32_t *qlen,                \
-      const int32_t *tlen, const int32_t *strand, const float *trans,       \
-      const float *trans2, float *outM, float *outI, float *outD,           \
-      float *outLs, int B, int Q, int W, int lanes, int warps, int ppb,     \
-      void *stream
+      const int32_t *rc0, const int32_t *j0, const T *m0, const T *i0,      \
+      const T *d0, const int32_t *qlen, const int32_t *tlen,                \
+      const int32_t *strand, const float *trans, const float *trans2,       \
+      T *outM, T *outI, T *outD, T *outLs, int B, int Q, int W, int lanes,  \
+      int warps, int ppb, void *stream
 #define TABLE_PASS                                                          \
   emis, shifts, inc, rc0, j0, m0, i0, d0, qlen, tlen, strand, trans,        \
       trans2, outM, outI, outD, outLs, B, Q, W, ppb
 
 // Returns 0, a CUDA error code, or GEOMETRY_ERROR for a geometry the
 // library was not built for (or that does not cover W).
-#define TABLE_LAUNCH(kernel)                                                \
+#define TABLE_LAUNCH(GEOMETRIES, KERNEL)                                     \
   if (B == 0) return 0;                                                     \
-  if (W < 1 || W > 2048 || ppb < 1 || lanes * 32 * warps < W ||             \
+  if (W < 1 || W > MAX_W || ppb < 1 || lanes * 32 * warps < W ||            \
       ppb * warps > block_warps(warps))                                     \
     return GEOMETRY_ERROR;                                                  \
   const dim3 grid((B + ppb - 1) / ppb), block(ppb * warps * 32);            \
   cudaStream_t s = (cudaStream_t)stream;                                    \
   bool known = false;                                                       \
-  TABLE_GEOMETRIES(kernel)                                                  \
+  GEOMETRIES(KERNEL)                                                        \
   if (!known) return GEOMETRY_ERROR;                                        \
   return (int)cudaGetLastError();
 
-#define FWD_CASE(L_, WPP_)                                                  \
+#define TABLE_CASE(kernel, T, L_, WPP_)                                     \
   if (lanes == L_ && warps == WPP_) {                                       \
-    fwd_tables_kernel<L_, WPP_><<<grid, block, 0, s>>>(TABLE_PASS);         \
+    const int smem = state_bytes<T>(L_, 32 * block_warps(WPP_));            \
+    if (smem > 48 * 1024)                                                   \
+      cudaFuncSetAttribute(kernel<T, L_, WPP_>,                             \
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,     \
+                           smem);                                           \
+    kernel<T, L_, WPP_><<<grid, block, smem, s>>>(TABLE_PASS);              \
     known = true;                                                           \
   }
-#define BWD_CASE(L_, WPP_)                                                  \
-  if (lanes == L_ && warps == WPP_) {                                       \
-    bwd_tables_kernel<L_, WPP_><<<grid, block, 0, s>>>(TABLE_PASS);         \
-    known = true;                                                           \
-  }
+#define FWD32_CASE(L_, WPP_) TABLE_CASE(fwd_tables_kernel, float, L_, WPP_)
+#define FWD64_CASE(L_, WPP_) TABLE_CASE(fwd_tables_kernel, double, L_, WPP_)
+#define BWD32_CASE(L_, WPP_) TABLE_CASE(bwd_tables_kernel, float, L_, WPP_)
+#define BWD64_CASE(L_, WPP_) TABLE_CASE(bwd_tables_kernel, double, L_, WPP_)
 
-extern "C" int fwd_tables_launch(TABLE_ARGS) { TABLE_LAUNCH(FWD_CASE) }
+extern "C" int fwd_tables_launch(TABLE_ARGS(float)) {
+  TABLE_LAUNCH(TABLE_GEOMETRIES_F32, FWD32_CASE)
+}
+extern "C" int fwd_tables64_launch(TABLE_ARGS(double)) {
+  TABLE_LAUNCH(TABLE_GEOMETRIES_F64, FWD64_CASE)
+}
 
 // The backward pass takes the band chars and columns of row Q (rcq, jq)
 // and the backward init (bm0, bi0, bd0) in the forward's rc0, j0, m0, i0,
 // d0 slots.
-extern "C" int bwd_tables_launch(TABLE_ARGS) { TABLE_LAUNCH(BWD_CASE) }
+extern "C" int bwd_tables_launch(TABLE_ARGS(float)) {
+  TABLE_LAUNCH(TABLE_GEOMETRIES_F32, BWD32_CASE)
+}
+extern "C" int bwd_tables64_launch(TABLE_ARGS(double)) {
+  TABLE_LAUNCH(TABLE_GEOMETRIES_F64, BWD64_CASE)
+}

@@ -24,9 +24,27 @@ __device__ __forceinline__ void pair_sync(int id, int nthreads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(nthreads) : "memory");
 }
 
+// fma, max, 1 / x and log in the tables' type (float, or double for the
+// gradient's tables).
+__device__ __forceinline__ float fma_t(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double fma_t(double a, double b, double c) {
+  return fma(a, b, c);
+}
+__device__ __forceinline__ float log_t(float x) { return logf(x); }
+__device__ __forceinline__ double log_t(double x) { return log(x); }
+__device__ __forceinline__ float max_t(float a, float b) {
+  return fmaxf(a, b);
+}
+__device__ __forceinline__ double max_t(double a, double b) {
+  return fmax(a, b);
+}
+
 // x^n for n >= 0 by squaring.
-__device__ __forceinline__ float ipow(float x, int n) {
-  float r = 1.f;
+template <typename T>
+__device__ __forceinline__ T ipow(T x, int n) {
+  T r = 1;
   while (n > 0) {
     if (n & 1) r *= x;
     x *= x;
@@ -37,7 +55,8 @@ __device__ __forceinline__ float ipow(float x, int n) {
 
 // a[s] = x^(n * 2^s), s = 0..4: the multipliers of a warp scan of a linear
 // recurrence with the same coefficient x on every lane, n lanes a thread.
-__device__ __forceinline__ void scan_powers(float x, int n, float (&a)[5]) {
+template <typename T>
+__device__ __forceinline__ void scan_powers(T x, int n, T (&a)[5]) {
   a[0] = ipow(x, n);
 #pragma unroll
   for (int s = 1; s < 5; ++s) a[s] = a[s - 1] * a[s - 1];
@@ -46,59 +65,107 @@ __device__ __forceinline__ void scan_powers(float x, int n, float (&a)[5]) {
 // Per-thread multipliers of the up-scan below: am[s] = a[s] where the
 // thread has a partner 2^s lanes down, else 0 (a[s] = A^(2^s), see
 // scan_powers).
-__device__ __forceinline__ void up_multipliers(const float (&a)[5], int lane,
-                                               float (&am)[5]) {
+template <typename T>
+__device__ __forceinline__ void up_multipliers(const T (&a)[5], int lane,
+                                               T (&am)[5]) {
 #pragma unroll
-  for (int s = 0; s < 5; ++s) am[s] = lane >= (1 << s) ? a[s] : 0.f;
+  for (int s = 0; s < 5; ++s) am[s] = lane >= (1 << s) ? a[s] : T(0);
 }
 
 // ... and of the down-scan: a partner 2^s lanes up.
-__device__ __forceinline__ void down_multipliers(const float (&a)[5], int lane,
-                                                 float (&am)[5]) {
+template <typename T>
+__device__ __forceinline__ void down_multipliers(const T (&a)[5], int lane,
+                                                 T (&am)[5]) {
 #pragma unroll
-  for (int s = 0; s < 5; ++s) am[s] = lane + (1 << s) < 32 ? a[s] : 0.f;
+  for (int s = 0; s < 5; ++s) am[s] = lane + (1 << s) < 32 ? a[s] : T(0);
 }
 
 // Inclusive scan y_t = z_t + A * y_{t-1} (y_{-1} = 0) over the warp's
 // threads, with am from up_multipliers.  Only y is shuffled: one shuffle
 // and one FMA a step.
-__device__ __forceinline__ float warp_linrec_up(float y, const float (&am)[5]) {
+template <typename T>
+__device__ __forceinline__ T warp_linrec_up(T y, const T (&am)[5]) {
 #pragma unroll
   for (int s = 0; s < 5; ++s)
-    y = fmaf(am[s], __shfl_up_sync(FULL_MASK, y, 1 << s), y);
+    y = fma_t(am[s], __shfl_up_sync(FULL_MASK, y, 1 << s), y);
   return y;
 }
 
 // Mirror: y_t = z_t + A * y_{t+1} (y_32 = 0), am from down_multipliers.
-__device__ __forceinline__ float warp_linrec_down(float y,
-                                                  const float (&am)[5]) {
+template <typename T>
+__device__ __forceinline__ T warp_linrec_down(T y, const T (&am)[5]) {
 #pragma unroll
   for (int s = 0; s < 5; ++s)
-    y = fmaf(am[s], __shfl_down_sync(FULL_MASK, y, 1 << s), y);
+    y = fma_t(am[s], __shfl_down_sync(FULL_MASK, y, 1 << s), y);
   return y;
 }
 
-// 1 / x to within 1 ulp (MUFU.RCP alone); x must be a normal float.
+// 1 / x: within 1 ulp in float (MUFU.RCP alone; x must be a normal float).
 __device__ __forceinline__ float rcp_approx(float x) {
   float r;
   asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
   return r;
 }
+// ... in double for x in float's normal range (a row's scale): the float
+// reciprocal refined by two Newton steps, to double's precision, with no
+// call to the division's slow path.
+__device__ __forceinline__ double rcp_approx(double x) {
+  double r = rcp_approx((float)x);
+  r = r * fma(-x, r, 2.0);
+  return r * fma(-x, r, 2.0);
+}
 
 // Butterfly sum / max: every lane gets the same bits (each step adds the
 // same two partials in either order).
-__device__ __forceinline__ float warp_sum(float v) {
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
   for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(FULL_MASK, v, s);
   return v;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
+template <typename T>
+__device__ __forceinline__ T warp_max(T v) {
 #pragma unroll
   for (int s = 16; s > 0; s >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(FULL_MASK, v, s));
+    v = max_t(v, __shfl_xor_sync(FULL_MASK, v, s));
   return v;
 }
+
+// A char code kept in a slot of the tables' type (a bit copy in float).
+__device__ __forceinline__ void int_to_slot(float& slot, int x) {
+  slot = __int_as_float(x);
+}
+__device__ __forceinline__ void int_to_slot(double& slot, int x) {
+  slot = __longlong_as_double((long long)x);
+}
+__device__ __forceinline__ int slot_to_int(float x) {
+  return __float_as_int(x);
+}
+__device__ __forceinline__ int slot_to_int(double x) {
+  return (int)__double_as_longlong(x);
+}
+
+// A thread's L band lanes of one row's state.  In registers (SMEM false),
+// the form up to 2048 lanes; or in shared memory, lane l of thread t at
+// base[l * N + t] with N the block's threads, a compile-time stride, so
+// each lane is an immediate offset from one address (SMEM true: the wide
+// form, whose row state would not fit a thread's registers).  Indexed by
+// compile-time lanes either way.
+template <typename T, int L, bool SMEM, int N>
+struct Lanes {
+  T v[L];
+  __device__ __forceinline__ void bind(T*, int) {}
+  __device__ __forceinline__ T& operator[](int l) { return v[l]; }
+  __device__ __forceinline__ const T& operator[](int l) const { return v[l]; }
+};
+
+template <typename T, int L, int N>
+struct Lanes<T, L, true, N> {
+  T* p;
+  __device__ __forceinline__ void bind(T* base, int t) { p = base + t; }
+  __device__ __forceinline__ T& operator[](int l) const { return p[l * N]; }
+};
 
 // Rows of streams a tile holds: the match emissions of a row take five
 // lanes (ref codes 0..3 and the pad code 4, whose emission is 0).

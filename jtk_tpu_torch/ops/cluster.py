@@ -4,19 +4,27 @@ Counterpart of ``jtk_tpu/ops/cluster.py``.  Objective ``get_lk``: Poisson
 cluster-size prior (best multiple of haploid coverage) plus, for every
 *used* column, the positive part of each cluster's column gain.  All
 restarts of many chunks run as parallel lanes (B, restarts) of one
-Metropolis chain in plain PyTorch; each step is O(K·V) tensor work per lane.
+Metropolis chain.  The seeding (k-means++ and Lloyd steps), the starting
+aggregates and the final pick of the best restart are plain PyTorch; the
+chain itself (``jtk_tpu``'s ``lax.scan``) is :func:`mcmc_chain`, the
+kernel of ``csrc/mcmc_chain.cu`` on a CUDA tensor and
+:func:`mcmc_chain_plain` on a CPU tensor, launched once per block of
+DRAW_BLOCK steps.  The objective sums in a fixed order, so kernel and
+plain chain give the same bits.
 
 The random draws are injectable (``draws``): the Gumbel noise behind the
 k-means++ categorical picks and, per step, ``u_idx`` (which read), ``prop``
 (which other cluster) and ``u`` (the acceptance uniform).  Production draws
-them from a ``torch.Generator``; a test can feed the JAX package's draws and
-get identical assignments.
+them from a ``torch.Generator``, a block at a time; a test can feed the JAX
+package's draws and get identical assignments.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .cuda_build import Launches, check, launch
 
 POS_THR = 1e-5
 POS_FRAC = 0.70
@@ -36,20 +44,44 @@ def poisson_size_table(Rmax: int, cov: float, K: int) -> np.ndarray:
     return best.astype(np.float32)
 
 
+def _tree_sum(s):
+    """Sum over the last dim by a fixed pairwise tree: padded with zeros to a
+    power of two, then ``s[..., :h] + s[..., h:2h]``, halving.  A warp's
+    ``__shfl_down_sync`` tree over 32 lanes (``csrc/mcmc_chain.cu``) adds
+    the same pairs in the same order."""
+    V = s.shape[-1]
+    P = 1 << max(V - 1, 0).bit_length()
+    s = torch.nn.functional.pad(s, (0, P - V))
+    while P > 1:
+        P //= 2
+        s = s[..., :P] + s[..., P:2 * P]
+    return s[..., 0]
+
+
 def _objective(agg_gain, agg_pos, agg_neg, counts, size_lk):
-    """Vectorized get_lk: (…, K, V) aggregates -> (…,) scalar."""
+    """Vectorized get_lk: (…, K, V) aggregates -> (…,) scalar.
+
+    The float sums run in a fixed order that the chain kernel reproduces
+    bit for bit: a column's K clusters in index order, then the columns by
+    :func:`_tree_sum`; the size term's K terms in index order.  (The
+    positive counts are whole numbers: their sums are exact in any
+    order.)"""
     informative = (agg_gain > 0) & (
         agg_pos > POS_FRAC * (agg_pos + agg_neg + 1e-7))
     any_inf = informative.any(-2)                                 # (..., V)
     pos_in_use = torch.where(agg_gain > 0, agg_pos, 0.0).sum(-2)
     pos_in_neg = torch.where(agg_gain <= 0, agg_pos, 0.0).sum(-2)
     used = any_inf & (pos_in_neg * IN_POS_RATIO < pos_in_use)     # (..., V)
-    gain_term = torch.where(used[..., None, :], agg_gain.clamp(min=0.0),
-                            0.0).sum((-1, -2))
+    pos = torch.where(used[..., None, :], agg_gain.clamp(min=0.0), 0.0)
+    col = pos[..., 0, :]
+    for k in range(1, pos.shape[-2]):
+        col = col + pos[..., k, :]
     cidx = counts.to(torch.int64).clamp(0, size_lk.shape[-1] - 1)
-    size_term = torch.gather(size_lk.expand(*cidx.shape[:-1], -1), -1,
-                             cidx).sum(-1)
-    return gain_term + size_term
+    size = torch.gather(size_lk.expand(*cidx.shape[:-1], -1), -1, cidx)
+    size_term = size[..., 0]
+    for k in range(1, size.shape[-1]):
+        size_term = size_term + size[..., k]
+    return _tree_sum(col) + size_term
 
 
 def _one_hot(idx, K, dtype):
@@ -108,6 +140,152 @@ def _gumbel(shape, gen, device):
     return -torch.log(-torch.log(u.clamp(min=1e-20)))
 
 
+def chain_start(X, w, size_lk, K: int, gumbel):
+    """The chain's starting state from k-means++ seeding and Lloyd steps:
+    a dict of tensors (``assign``, ``best_assign`` (B, S, R) int32;
+    ``agg_gain``, ``agg_pos``, ``agg_neg`` (B, S, K, V) f32; ``counts``
+    (B, S, K) f32; ``lk``, ``best_lk`` (B, S) f32).  X (B, R, V), w (B, R)
+    row weights, size_lk (B, R + 1), gumbel (B, S, K, R)."""
+    B, Rmax, V = X.shape
+    S = gumbel.shape[1]
+    assign = _kmeanspp_init(X, w, gumbel, K)                      # (B, S, R)
+    agg_gain, agg_pos, agg_neg, counts = _aggregates(
+        X[:, None].expand(B, S, Rmax, V), w[:, None].expand(B, S, Rmax),
+        assign, K)
+    lk = _objective(agg_gain, agg_pos, agg_neg, counts, size_lk[:, None, :])
+    assign = assign.to(torch.int32)
+    return dict(assign=assign, best_assign=assign.clone(),
+                agg_gain=agg_gain.contiguous(), agg_pos=agg_pos.contiguous(),
+                agg_neg=agg_neg.contiguous(), counts=counts.contiguous(),
+                lk=lk.contiguous(), best_lk=lk.clone())
+
+
+def generator_block(generator, shape, K: int, device):
+    """One draw block's uniforms from ``generator``: (U_idx, PROP, U),
+    each ``shape`` = (T, B, S), by the calls and in the order the chain has
+    always drawn them."""
+    U_idx = torch.rand(shape, generator=generator, device=device)
+    PROP = torch.randint(0, K - 1, shape, generator=generator, device=device)
+    U = torch.rand(shape, generator=generator, device=device)
+    return U_idx, PROP, U
+
+
+def block_draws(U_idx, PROP, U, R_actual, Rmax: int):
+    """One draw block's steps from its uniforms: (idx, prop, logu), each
+    (T, B, S).  The same tensor expressions as a step's, on the whole block
+    (they are elementwise)."""
+    Rf = R_actual.to(torch.float32)[:, None]
+    idx = torch.floor(U_idx * Rf).to(torch.int64).clamp(0, Rmax - 1)
+    return idx, PROP.to(torch.int64), torch.log(U + 1e-30)
+
+
+def mcmc_chain_plain(st, X, size_lk, idx, prop, logu):
+    """Plain PyTorch version of the chain kernel: advance the chain state
+    ``st`` (see :func:`chain_start`) in place over the steps of one draw
+    block (idx, prop, logu: (T, B, S)).  Each step picks read idx, moves it
+    to cluster prop (skipping its own), re-scores the objective and accepts
+    if lk_new - lk > logu; the best state is kept on a strict >."""
+    B, Rmax, V = X.shape
+    K = st["counts"].shape[-1]
+    assign, best_assign = st["assign"], st["best_assign"]
+    agg_gain, agg_pos, agg_neg = st["agg_gain"], st["agg_pos"], st["agg_neg"]
+    counts, lk, best_lk = st["counts"], st["lk"], st["best_lk"]
+    bidx = torch.arange(B, device=X.device)[:, None]
+    sl = size_lk[:, None, :]
+    for t in range(idx.shape[0]):
+        i = idx[t]
+        old = torch.gather(assign, 2, i[..., None])[..., 0].to(torch.int64)
+        new = prop[t] + (prop[t] >= old).to(torch.int64)
+        x_row = X[bidx, i]                                        # (B, S, V)
+        p_row = (x_row > POS_THR).to(X.dtype)
+        n_row = (x_row < -POS_THR).to(X.dtype)
+        delta = -_one_hot(old, K, X.dtype) + _one_hot(new, K, X.dtype)
+        dl = delta[..., None]
+        g_n = agg_gain + dl * x_row[..., None, :]
+        p_n = agg_pos + dl * p_row[..., None, :]
+        n_n = agg_neg + dl * n_row[..., None, :]
+        c_n = counts + delta
+        lk_new = _objective(g_n, p_n, n_n, c_n, sl)
+        accept = (lk_new - lk) > logu[t]
+        acc = accept[..., None]
+        accm = accept[..., None, None]
+        assign = torch.where(acc, assign.scatter(
+            2, i[..., None], new[..., None].to(assign.dtype)), assign)
+        agg_gain = torch.where(accm, g_n, agg_gain)
+        agg_pos = torch.where(accm, p_n, agg_pos)
+        agg_neg = torch.where(accm, n_n, agg_neg)
+        counts = torch.where(acc, c_n, counts)
+        lk = torch.where(accept, lk_new, lk)
+        better = lk > best_lk
+        best_lk = torch.where(better, lk, best_lk)
+        best_assign = torch.where(better[..., None], assign, best_assign)
+    for name, v in (("assign", assign), ("best_assign", best_assign),
+                    ("agg_gain", agg_gain), ("agg_pos", agg_pos),
+                    ("agg_neg", agg_neg), ("counts", counts), ("lk", lk),
+                    ("best_lk", best_lk)):
+        if v is not st[name]:
+            st[name].copy_(v)
+
+
+CHAIN_LAUNCHES = Launches("mcmc_chain")
+SMEM_LIMIT = 232448      # bytes of shared memory a block may use (H100)
+
+
+def chain_smem_bytes(K: int, V: int, Rmax: int) -> int:
+    """Shared memory of one chain (one warp): the K x Vp aggregates (Vp =
+    V padded to 32 times a power of two), a column scratch, the counts and
+    the assignment (``csrc/mcmc_chain.cu``)."""
+    Vp = 32 * chain_groups(V)
+    return 4 * (3 * K * Vp + Vp + K + Rmax)
+
+
+def chain_groups(V: int) -> int:
+    """Column groups of 32 a lane walks: V padded to a power of two,
+    over 32 (at least 1)."""
+    P = 1 << max(V - 1, 0).bit_length()
+    return max(1, P // 32)
+
+
+def mcmc_chain(st, X, size_lk, idx, prop, logu):
+    """Advance the chain state ``st`` in place over one draw block.
+
+    On CUDA tensors this launches the kernel of ``csrc/mcmc_chain.cu``, one
+    warp per (chunk, restart) lane, bit-exact against
+    :func:`mcmc_chain_plain`; on CPU tensors it runs the plain version."""
+    if X.device.type == "cpu":
+        return mcmc_chain_plain(st, X, size_lk, idx, prop, logu)
+    B, Rmax, V = X.shape
+    T, _, S = idx.shape
+    K = st["counts"].shape[-1]
+    smem = chain_smem_bytes(K, V, Rmax)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"mcmc_chain: K {K}, V {V} and Rmax {Rmax} need "
+                         f"{smem} bytes of shared memory a chain, above "
+                         f"{SMEM_LIMIT}")
+    f32, i32 = torch.float32, torch.int32
+    idx32 = idx.to(i32).contiguous()
+    prop32 = prop.to(i32).contiguous()
+    for t, name, dt, shape in (
+            (X, "X", f32, (B, Rmax, V)), (size_lk, "size_lk", f32,
+                                          (B, Rmax + 1)),
+            (idx32, "idx", i32, (T, B, S)), (prop32, "prop", i32, (T, B, S)),
+            (logu, "logu", f32, (T, B, S)),
+            (st["assign"], "assign", i32, (B, S, Rmax)),
+            (st["best_assign"], "best_assign", i32, (B, S, Rmax)),
+            (st["agg_gain"], "agg_gain", f32, (B, S, K, V)),
+            (st["agg_pos"], "agg_pos", f32, (B, S, K, V)),
+            (st["agg_neg"], "agg_neg", f32, (B, S, K, V)),
+            (st["counts"], "counts", f32, (B, S, K)),
+            (st["lk"], "lk", f32, (B, S)),
+            (st["best_lk"], "best_lk", f32, (B, S))):
+        check(t, dt, shape, f"mcmc_chain {name}")
+    launch("mcmc_chain", "mcmc_chain_launch", X, size_lk, idx32, prop32,
+           logu, st["assign"], st["best_assign"], st["agg_gain"],
+           st["agg_pos"], st["agg_neg"], st["counts"], st["lk"],
+           st["best_lk"], B, S, Rmax, K, V, chain_groups(V), T, smem)
+    CHAIN_LAUNCHES.add((B, S, K, V, Rmax))
+
+
 def mcmc_cluster_batch(X, R_actual, size_lk, K: int, steps: int,
                        restarts: int, generator=None, draws=None,
                        device=None):
@@ -117,8 +295,10 @@ def mcmc_cluster_batch(X, R_actual, size_lk, K: int, steps: int,
     size_lk: (B, Rmax+1) Poisson size prior tables.  Random draws come from
     ``generator`` (a torch.Generator on the device) unless ``draws`` gives
     them: ``init_gumbel`` (B, restarts, K, Rmax), and per step ``u_idx``,
-    ``prop`` (ints in [0, K-1)) and ``u``, each (steps, B, restarts).
-    Returns numpy (best_assign (B, Rmax) int32, best_score (B,) f32)."""
+    ``prop`` (ints in [0, K-1)) and ``u``, each (steps, B, restarts).  The
+    chain runs a draw block of DRAW_BLOCK steps at a time
+    (:func:`mcmc_chain`).  Returns numpy (best_assign (B, Rmax) int32,
+    best_score (B,) f32)."""
     from ..runtime import resolve
     dev = resolve(device)
     X = torch.as_tensor(np.asarray(X, np.float32), device=dev)
@@ -137,15 +317,7 @@ def mcmc_cluster_batch(X, R_actual, size_lk, K: int, steps: int,
                              device=dev)
     else:
         g0 = _gumbel((B, S, K, Rmax), generator, dev)
-    assign = _kmeanspp_init(X, w, g0, K)                          # (B, S, R)
-    Xl = X[:, None].expand(B, S, Rmax, V)
-    agg_gain, agg_pos, agg_neg, counts = _aggregates(
-        Xl, w[:, None].expand(B, S, Rmax), assign, K)
-    sl = size_lk[:, None, :]
-    lk = _objective(agg_gain, agg_pos, agg_neg, counts, sl)
-    best_lk, best_assign = lk, assign
-    bidx = torch.arange(B, device=dev)[:, None]
-    Rf = Ra.to(torch.float32)[:, None]
+    st = chain_start(X, w, size_lk, K, g0)
     for t0 in range(0, steps, DRAW_BLOCK):
         t1 = min(steps, t0 + DRAW_BLOCK)
         if draws is not None:
@@ -153,42 +325,12 @@ def mcmc_cluster_batch(X, R_actual, size_lk, K: int, steps: int,
             PROP = drawn("prop", t0, t1, torch.int64)
             U = drawn("u", t0, t1, torch.float32)
         else:
-            shp = (t1 - t0, B, S)
-            U_idx = torch.rand(shp, generator=generator, device=dev)
-            PROP = torch.randint(0, K - 1, shp, generator=generator,
-                                 device=dev)
-            U = torch.rand(shp, generator=generator, device=dev)
-        for t in range(t1 - t0):
-            idx = torch.floor(U_idx[t] * Rf).to(torch.int64) \
-                .clamp(0, Rmax - 1)
-            old = torch.gather(assign, 2, idx[..., None])[..., 0]
-            prop = PROP[t]
-            new = prop + (prop >= old).to(torch.int64)
-            x_row = X[bidx, idx]                                  # (B, S, V)
-            p_row = (x_row > POS_THR).to(X.dtype)
-            n_row = (x_row < -POS_THR).to(X.dtype)
-            delta = -_one_hot(old, K, X.dtype) + _one_hot(new, K, X.dtype)
-            dl = delta[..., None]
-            g_n = agg_gain + dl * x_row[..., None, :]
-            p_n = agg_pos + dl * p_row[..., None, :]
-            n_n = agg_neg + dl * n_row[..., None, :]
-            c_n = counts + delta
-            lk_new = _objective(g_n, p_n, n_n, c_n, sl)
-            accept = (lk_new - lk) > torch.log(U[t] + 1e-30)
-            acc = accept[..., None]
-            accm = accept[..., None, None]
-            assign = torch.where(acc, assign.scatter(2, idx[..., None],
-                                                     new[..., None]), assign)
-            agg_gain = torch.where(accm, g_n, agg_gain)
-            agg_pos = torch.where(accm, p_n, agg_pos)
-            agg_neg = torch.where(accm, n_n, agg_neg)
-            counts = torch.where(acc, c_n, counts)
-            lk = torch.where(accept, lk_new, lk)
-            better = lk > best_lk
-            best_lk = torch.where(better, lk, best_lk)
-            best_assign = torch.where(better[..., None], assign, best_assign)
+            U_idx, PROP, U = generator_block(generator, (t1 - t0, B, S), K,
+                                             dev)
+        mcmc_chain(st, X, size_lk, *block_draws(U_idx, PROP, U, Ra, Rmax))
+    best_lk = st["best_lk"]
     best_r = torch.argmax(best_lk, 1)
-    out_assign = best_assign[torch.arange(B, device=dev), best_r]
+    out_assign = st["best_assign"][torch.arange(B, device=dev), best_r]
     best_score = best_lk.max(1).values
     return (out_assign.cpu().numpy().astype(np.int32),
             best_score.cpu().numpy().astype(np.float32))

@@ -9,9 +9,16 @@ paths.  :class:`PairHMMLikelihood` is the ``torch.autograd.Function``:
 
 * forward: the K1l kernel (:mod:`.phmm_lk`);
 * backward: the K1 forward and backward tables (:mod:`.phmm_tables`, strand
-  0, one parameter set) and the counts kernel of ``csrc/phmm_counts.cu``
-  (:func:`phmm_counts`; :func:`phmm_counts_plain` on CPU tensors), scaled by
-  ``grad_output``.  The kernel is a reduction over (pair, row strip, band
+  0, one parameter set) in float64, and the counts kernel of
+  ``csrc/phmm_counts.cu`` (:func:`phmm_counts`; :func:`phmm_counts_plain`
+  on CPU tensors), scaled by ``grad_output``.  Float64, because a read
+  that starts s bases late in its template opens with a deletion run of
+  weight ~tdd^(s-1) (~1e-52 at s = 26), under float32's range in a row
+  scaled once: its counts were wrong in float32 from s ~ 26; double
+  reaches ~150 bases late.  The backward starts from the derivative of lk
+  = log(fin + EPS) + fcum itself, the end cell plus EPS times the last
+  row's every cell, so a read whose end cell falls under EPS (one that
+  ends ~20+ bases early) gets the floored lk's gradient, not ~0.  The kernel is a reduction over (pair, row strip, band
   chunk) units with a fixed-order second pass: no float atomics, so the
   counts are the same bits from run to run.
 
@@ -35,19 +42,27 @@ LAUNCHES = Launches("phmm_counts")
 N_COUNTS = 9 + 16 + 20
 COUNTS_STRIP = 16       # rows of a unit of the counts kernel
 COUNTS_CHUNK = 128      # band lanes of a unit: 32 threads x 4 lanes
+HALF_WEIGHT_CAP = 700.0  # e^700 < float64's largest, 1.8e308
+# the six float64 tables of one gradient slice (B, Q+1, W) may take this
+# many bytes; a larger batch is cut into slices of pairs
+COUNTS_TABLE_BYTES = 4 << 30
+PAIR_KEYS = ("qs", "r", "offs", "q_lens", "t_lens", "strand")
 
 
 def _half_weight(c, live):
-    """exp(c / 2) where ``live``, else 0: a cell's weight exp(fcum + bcum -
-    lk) goes half to its forward and half to its backward value.  Whole,
-    it passes float32's range (e^88) where f * b is tiny, as at row 0 of a
-    read that starts late in its template, and 0 * inf gave NaN counts."""
-    return torch.where(live, torch.exp(torch.clamp(0.5 * c, max=88.0)), 0.0)
+    """exp(c / 2) where ``live``, else 0 (float64): a cell's weight
+    exp(fcum + bcum - lk) goes half to its forward and half to its backward
+    value.  Whole, it can pass the type's range where f * b is tiny, as at
+    row 0 of a read that starts late in its template, and 0 * inf gave NaN
+    counts; c / 2 is capped at HALF_WEIGHT_CAP."""
+    return torch.where(live, torch.exp(torch.clamp(0.5 * c,
+                                                   max=HALF_WEIGHT_CAP)), 0.0)
 
 
 def phmm_counts_plain(fM, fI, fD, bM, bI, bD, fcum, bcum, rcs, qs, shifts,
                       qlen, lk, trans, me, ie):
-    """Plain PyTorch version of the counts kernel: (B, 45) f32."""
+    """Plain PyTorch version of the counts kernel: (B, 45) f32 from float64
+    tables, computed in float64."""
     B, Q1 = fM.shape[:2]
     dev = fM.device
     rows = torch.arange(Q1, device=dev)
@@ -79,21 +94,21 @@ def phmm_counts_plain(fM, fI, fD, bM, bI, bD, fcum, bcum, rcs, qs, shifts,
     post_m = (fM[:, 1:] * h1) * (bM[:, 1:] * h1)
     post_i = ((fI[:, 1:] * h1) * (bI[:, 1:] * h1)).sum(2)
     oh = torch.nn.functional.one_hot
+    dt = post_m.dtype
     by_ref = torch.einsum("bqw,bqwa->bqa", post_m,
-                          oh(rc.clamp(0, 4), 5)[..., :4].to(torch.float32))
-    oq = oh(qc.clamp(0, 4), 5)[..., :4].to(torch.float32)
+                          oh(rc.clamp(0, 4), 5)[..., :4].to(dt))
+    oq = oh(qc.clamp(0, 4), 5)[..., :4].to(dt)
     me_c = torch.einsum("bqa,bqc->bac", by_ref, oq).reshape(B, 16)
     ie_c = torch.einsum("bq,bqp,bqc->bpc", post_i,
-                        oh(qp.clamp(0, 4), 5).to(torch.float32),
-                        oq).reshape(B, 20)
-    return torch.cat([torch.stack(cnt, 1), me_c, ie_c], 1)
+                        oh(qp.clamp(0, 4), 5).to(dt), oq).reshape(B, 20)
+    return torch.cat([torch.stack(cnt, 1), me_c, ie_c], 1).to(torch.float32)
 
 
 def counts_geometry(W: int, Q: int) -> int:
     """Units of the counts kernel a pair has at band width ``W`` and ``Q``
     query rows: strips of ``COUNTS_STRIP`` rows of its Q + 1 times chunks
     of ``COUNTS_CHUNK`` band lanes (one warp each, ``csrc/phmm_counts.cu``).
-    W runs up to the K1 tables' ``MAX_W``."""
+    W runs up to the K1 family's ``MAX_W``."""
     if not 1 <= W <= MAX_W:
         raise ValueError(f"phmm_counts: band width {W} outside 1..{MAX_W}")
     return -(-(Q + 1) // COUNTS_STRIP) * -(-W // COUNTS_CHUNK)
@@ -103,9 +118,9 @@ def phmm_counts(fM, fI, fD, bM, bI, bD, fcum, bcum, rcs, qs, shifts, qlen,
                 lk, trans, me, ie):
     """Per-pair expected counts from the stitched K1 tables.
 
-    fM..bD (B, Q+1, W) f32 scaled tables, fcum, bcum (B, Q+1) f32
+    fM..bD (B, Q+1, W) f64 scaled tables, fcum, bcum (B, Q+1) f64
     cumulative log scales, rcs (B, Q+1, W) int32 template chars per cell,
-    qs, shifts (B, Q) int32, qlen (B,) int32, lk (B,) f32, trans, me, ie
+    qs, shifts (B, Q) int32, qlen (B,) int32, lk (B,) f64, trans, me, ie
     (8, 8) f32 padded tables.  Returns (B, 45) f32, the same bits from run
     to run."""
     if fM.device.type == "cpu":
@@ -114,16 +129,16 @@ def phmm_counts(fM, fI, fD, bM, bI, bD, fcum, bcum, rcs, qs, shifts, qlen,
     B, Q1, W = fM.shape
     Q = Q1 - 1
     units = counts_geometry(W, Q)
-    f32, i32 = torch.float32, torch.int32
+    f32, f64, i32 = torch.float32, torch.float64, torch.int32
     tables = (fM, fI, fD, bM, bI, bD, rcs)
     for t, name, dt, shape in (
-            (fM, "fM", f32, (B, Q1, W)), (fI, "fI", f32, (B, Q1, W)),
-            (fD, "fD", f32, (B, Q1, W)), (bM, "bM", f32, (B, Q1, W)),
-            (bI, "bI", f32, (B, Q1, W)), (bD, "bD", f32, (B, Q1, W)),
-            (fcum, "fcum", f32, (B, Q1)), (bcum, "bcum", f32, (B, Q1)),
+            (fM, "fM", f64, (B, Q1, W)), (fI, "fI", f64, (B, Q1, W)),
+            (fD, "fD", f64, (B, Q1, W)), (bM, "bM", f64, (B, Q1, W)),
+            (bI, "bI", f64, (B, Q1, W)), (bD, "bD", f64, (B, Q1, W)),
+            (fcum, "fcum", f64, (B, Q1)), (bcum, "bcum", f64, (B, Q1)),
             (rcs, "rcs", i32, (B, Q1, W)), (qs, "qs", i32, (B, Q)),
             (shifts, "shifts", i32, (B, Q)), (qlen, "qlen", i32, (B,)),
-            (lk, "lk", f32, (B,)), (trans, "trans", f32, (8, 8)),
+            (lk, "lk", f64, (B,)), (trans, "trans", f32, (8, 8)),
             (me, "me", f32, (8, 8)), (ie, "ie", f32, (8, 8))):
         check(t, dt, shape, f"phmm_counts {name}")
     # 16-byte loads of 4 lanes: rows of a multiple of 4 lanes, aligned bases
@@ -146,10 +161,11 @@ def counts_prep(params, batch: "PairBatch") -> dict:
 
 
 def counts_args(prep, W: int):
-    """Run the K1 table kernels on a prepared batch (one parameter set) and
+    """Run the K1 table kernels on a prepared batch (one parameter set), in
+    float64 and with the backward of lk itself (its EPS term included), and
     return :func:`phmm_counts`' arguments."""
     lk, (fM, fI, fD), fcum, rcs, (bM, bI, bD), bcum, _offs = \
-        tables_batch(prep, W)
+        tables_batch(prep, W, dtype=torch.float64, lk_init=True)
     i32 = torch.int32
     qs = prep["qs"]
     shifts = (prep["offs"][:, 1:] - prep["offs"][:, :-1]).to(i32)
@@ -157,6 +173,24 @@ def counts_args(prep, W: int):
             rcs.to(i32).contiguous(), qs.to(i32).contiguous(),
             shifts.contiguous(), prep["q_lens"].to(i32).contiguous(),
             lk.contiguous(), prep["trans"], prep["me8"], prep["ie8"])
+
+
+def counts_slices(B: int, Q: int, W: int) -> list[tuple[int, int]]:
+    """Pair ranges of the gradient's slices: as many pairs a slice as keep
+    its six float64 (Q+1, W) tables within COUNTS_TABLE_BYTES."""
+    per = max(1, COUNTS_TABLE_BYTES // (6 * (Q + 1) * W * 8))
+    return [(a, min(B, a + per)) for a in range(0, B, per)]
+
+
+def batch_counts(prep, W: int) -> torch.Tensor:
+    """Expected counts (B, 45) of a prepared batch, slice by slice
+    (:func:`counts_slices`; the counts of a pair depend on it alone)."""
+    B, Q = prep["qs"].shape
+    out = []
+    for a, b in counts_slices(B, Q, W):
+        part = {k: (v[a:b] if k in PAIR_KEYS else v) for k, v in prep.items()}
+        out.append(phmm_counts(*counts_args(part, W)))
+    return out[0] if len(out) == 1 else torch.cat(out)
 
 
 class PairBatch:
@@ -193,7 +227,7 @@ class PairHMMLikelihood(torch.autograd.Function):
         trans, mat_emit, ins_emit = ctx.saved_tensors
         batch = ctx.batch
         prep = counts_prep(PHMMParams(trans, mat_emit, ins_emit), batch)
-        counts = phmm_counts(*counts_args(prep, batch.W))
+        counts = batch_counts(prep, batch.W)
         g = (grad_lk.to(counts.dtype)[:, None] * counts).sum(0)
         return (g[:9].view(3, 3) / trans, g[9:25].view(4, 4) / mat_emit,
                 g[25:].view(5, 4) / ins_emit, None)

@@ -11,6 +11,9 @@ streams, the closed-form forward row 0 and backward init, stitching to
 
 The forward pass rescales each row by its SUM, the backward pass by its
 MAX; the closed-form modification table joins the two cumulative scales.
+The tables are float32, or float64 for the gradient's expected counts
+(:mod:`.phmm_grad`): the state, the Del chain and the scales in the given
+type, the emissions and transitions float32.
 """
 
 from __future__ import annotations
@@ -25,20 +28,33 @@ EPS = 1e-30
 FWD_LAUNCHES = Launches("fwd_tables")
 BWD_LAUNCHES = Launches("bwd_tables")
 
-MAX_W = 2048            # 8 x 256, the widest band ``band_buckets`` reaches
+MAX_W = 4096            # the widest band of the K1 family (tables, K1l, counts)
 MAX_LANES = 4           # band lanes a thread keeps in registers
+WIDE_WARPS = 8          # warps a pair in the wide form
 
 
-def tables_geometry(W: int, kernel: str = "tables") -> tuple[int, int, int]:
+def register_form_w(dtype=torch.float32) -> int:
+    """The widest band of the register form: 16 warps of 4 lanes in float32;
+    in float64 8 warps (at 16, a block of 512 threads has 128 registers a
+    thread, and the double state does not fit)."""
+    return 2048 if dtype == torch.float32 else 1024
+
+
+def tables_geometry(W: int, kernel: str = "tables",
+                    dtype=torch.float32) -> tuple[int, int, int]:
     """Launch geometry of the table kernels, and of K1l (``csrc/phmm_lk.cu``),
-    for band width ``W``: (lanes per thread, warps per pair, pairs per
-    block).  A thread holds
-    up to MAX_LANES lanes (the cost of a row is the instructions one
-    thread issues, so wide bands take more warps, 1 to 16, rather than more
-    lanes); a block holds 4 warps, or one pair of more.  Both counts are
-    powers of two (the kernels are built for those)."""
+    for band width ``W`` in ``dtype``: (lanes per thread, warps per pair,
+    pairs per block).  In the register form a thread holds up to MAX_LANES
+    lanes (the cost of a row is the instructions one thread issues, so
+    wide bands take more warps, 1 to 16, rather than more lanes); a block
+    holds 4 warps, or one pair of more.  Above ``register_form_w`` the wide
+    form keeps each lane's state in shared memory: 8 lanes a thread up to
+    2048, 16 up to MAX_W, WIDE_WARPS warps, one pair a block.  The counts
+    are powers of two (the kernels are built for those)."""
     if not 1 <= W <= MAX_W:
         raise ValueError(f"{kernel}: band width {W} outside 1..{MAX_W}")
+    if W > register_form_w(dtype):
+        return (8 if W <= 32 * 8 * WIDE_WARPS else 16), WIDE_WARPS, 1
     lanes = 1
     while lanes < MAX_LANES and 32 * lanes < W:
         lanes *= 2
@@ -83,11 +99,12 @@ def _linrec(c, a, rev: bool = False):
     return y
 
 
-def _trans_cols(strand, trans, trans2):
+def _trans_cols(strand, trans, trans2, dtype=torch.float32):
     """Per-pair strand-selected transitions: 9 (B, 1) columns in the order
-    mm, mi, md, im, ii, id, dm, di, dd."""
+    mm, mi, md, im, ii, id, dm, di, dd, in the tables' ``dtype`` (the Del
+    chain's powers of dd keep its range)."""
     sel = (strand > 0)[:, None]
-    return [torch.where(sel, trans2[a, b], trans[a, b])
+    return [torch.where(sel, trans2[a, b], trans[a, b]).to(dtype)
             for a in range(3) for b in range(3)]
 
 
@@ -111,7 +128,8 @@ def fwd_tables_plain(emis, shifts, inc, rc0, j0, m0, i0, d0, qlen, tlen,
     move together as one (B, 3, W) state)."""
     B, W = rc0.shape
     Q = shifts.shape[1]
-    mm, mi, md, im, ii, id_, dm, di, dd = _trans_cols(strand, trans, trans2)
+    mm, mi, md, im, ii, id_, dm, di, dd = _trans_cols(strand, trans, trans2,
+                                                      m0.dtype)
     tM = torch.stack([mm, im, dm], 1)          # (B, 3, 1) into M
     tI = torch.stack([mi, ii, di], 1)          # (B, 3, 1) into I
     em5, ei = _emis_rows(emis, Q)
@@ -120,8 +138,9 @@ def fwd_tables_plain(emis, shifts, inc, rc0, j0, m0, i0, d0, qlen, tlen,
     F = torch.stack([m0, i0, d0], 1)
     j, rc = j0, rc0.to(torch.int64)
     inc = inc.to(torch.int64)
-    outF = torch.empty((B, Q, 3, W), dtype=torch.float32, device=rc0.device)
-    outLs = torch.zeros((B, Q), dtype=torch.float32, device=rc0.device)
+    dt = m0.dtype
+    outF = torch.empty((B, Q, 3, W), dtype=dt, device=rc0.device)
+    outLs = torch.zeros((B, Q), dtype=dt, device=rc0.device)
     Qe = _last_row(qlen)
     for r in range(Qe):
         sv = shifts[:, r:r + 1]
@@ -156,15 +175,17 @@ def bwd_tables_plain(emis, shifts, inc, rcq, jq, bm0, bi0, bd0, qlen, tlen,
     """Plain PyTorch version of the backward-tables kernel."""
     B, W = rcq.shape
     Q = shifts.shape[1]
-    mm, mi, md, im, ii, id_, dm, di, dd = _trans_cols(strand, trans, trans2)
+    mm, mi, md, im, ii, id_, dm, di, dd = _trans_cols(strand, trans, trans2,
+                                                      bm0.dtype)
     em5, ei = _emis_rows(emis, Q)
     tl = tlen[:, None]
     ql = qlen[:, None]
     bM, bI, bD, j = bm0, bi0, bd0, jq
     rc = rcq.to(torch.int64)
     inc = inc.to(torch.int64)
-    outF = torch.empty((B, Q, 3, W), dtype=torch.float32, device=rcq.device)
-    outLs = torch.zeros((B, Q), dtype=torch.float32, device=rcq.device)
+    dt = bm0.dtype
+    outF = torch.empty((B, Q, 3, W), dtype=dt, device=rcq.device)
+    outLs = torch.zeros((B, Q), dtype=dt, device=rcq.device)
     Qe = _last_row(qlen)
     outF[:, Qe:] = torch.stack([bM, bI, bD], 1)[:, None]
     for i in range(Qe - 1, -1, -1):
@@ -200,25 +221,30 @@ def _launch_tables(kind, emis, shifts, inc, rc0, j0, m0, i0, d0, qlen, tlen,
                    strand, trans, trans2):
     B, W = rc0.shape
     Q = shifts.shape[1]
-    geometry = tables_geometry(W)
+    dt_t = m0.dtype
+    if dt_t not in (torch.float32, torch.float64):
+        raise ValueError(f"{kind}_tables: expected float32 or float64 state, "
+                         f"got {dt_t}")
+    geometry = tables_geometry(W, f"{kind}_tables", dt_t)
     f32, i32 = torch.float32, torch.int32
     for t, name, dt, shape in (
             (emis, "emis", f32, (B, 5 * Q)), (shifts, "shifts", i32, (B, Q)),
             (inc, "inc", i32, (B, Q)), (rc0, "rc", i32, (B, W)),
-            (j0, "j", i32, (B, W)), (m0, "M0", f32, (B, W)),
-            (i0, "I0", f32, (B, W)), (d0, "D0", f32, (B, W)),
+            (j0, "j", i32, (B, W)), (m0, "M0", dt_t, (B, W)),
+            (i0, "I0", dt_t, (B, W)), (d0, "D0", dt_t, (B, W)),
             (qlen, "qlen", i32, (B,)), (tlen, "tlen", i32, (B,)),
             (strand, "strand", i32, (B,)), (trans, "trans", f32, (8, 8)),
             (trans2, "trans2", f32, (8, 8))):
         check(t, dt, shape, f"{kind}_tables {name}")
     dev = rc0.device
-    outM = torch.empty((B, Q, W), dtype=f32, device=dev)
+    outM = torch.empty((B, Q, W), dtype=dt_t, device=dev)
     outI = torch.empty_like(outM)
     outD = torch.empty_like(outM)
-    outLs = torch.empty((B, Q), dtype=f32, device=dev)
-    launch("phmm_tables", f"{kind}_tables_launch", emis, shifts, inc, rc0,
-           j0, m0, i0, d0, qlen, tlen, strand, trans, trans2, outM, outI,
-           outD, outLs, B, Q, W, *geometry)
+    outLs = torch.empty((B, Q), dtype=dt_t, device=dev)
+    entry = f"{kind}_tables{'64' if dt_t == torch.float64 else ''}_launch"
+    launch("phmm_tables", entry, emis, shifts, inc, rc0, j0, m0, i0, d0,
+           qlen, tlen, strand, trans, trans2, outM, outI, outD, outLs, B, Q,
+           W, *geometry)
     return outM, outI, outD, outLs
 
 
@@ -228,15 +254,17 @@ def fwd_tables(emis, shifts, inc, rc0, j0, m0, i0, d0, qlen, tlen, strand,
 
     emis (B, 5Q) f32 = [me(A) | me(C) | me(G) | me(T) | ie] per row;
     shifts, inc (B, Q) int32; rc0, j0 (B, W) int32; m0, i0, d0 (B, W) f32
-    row 0; qlen, tlen, strand (B,) int32; trans, trans2 (8, 8) f32 padded
-    transition tables (strand 1 selects trans2).
-    Returns M, I, D (B, Q, W) f32 for rows 1..Q and log scales (B, Q)."""
+    row 0 (f32, or f64 for float64 tables); qlen, tlen, strand (B,) int32;
+    trans, trans2 (8, 8) f32 padded transition tables (strand 1 selects
+    trans2).  Returns M, I, D (B, Q, W) for rows 1..Q and log scales
+    (B, Q), in m0's type."""
     if rc0.device.type == "cpu":
         return fwd_tables_plain(emis, shifts, inc, rc0, j0, m0, i0, d0, qlen,
                                 tlen, strand, trans, trans2)
     out = _launch_tables("fwd", emis, shifts, inc, rc0, j0, m0, i0, d0, qlen,
                          tlen, strand, trans, trans2)
-    FWD_LAUNCHES.add((rc0.shape[0], shifts.shape[1], rc0.shape[1]))
+    FWD_LAUNCHES.add((rc0.shape[0], shifts.shape[1], rc0.shape[1],
+                      _type_name(m0.dtype)))
     return out
 
 
@@ -250,8 +278,13 @@ def bwd_tables(emis, shifts, inc, rcq, jq, bm0, bi0, bd0, qlen, tlen, strand,
                                 qlen, tlen, strand, trans, trans2)
     out = _launch_tables("bwd", emis, shifts, inc, rcq, jq, bm0, bi0, bd0,
                          qlen, tlen, strand, trans, trans2)
-    BWD_LAUNCHES.add((rcq.shape[0], shifts.shape[1], rcq.shape[1]))
+    BWD_LAUNCHES.add((rcq.shape[0], shifts.shape[1], rcq.shape[1],
+                      _type_name(bm0.dtype)))
     return out
+
+
+def _type_name(dtype) -> str:
+    return "f64" if dtype == torch.float64 else "f32"
 
 
 def _tables8(par):
@@ -315,10 +348,17 @@ def prep_tables_inputs(qs, template, offsets, q_lens, t_len, params, W: int,
                 me28=t(me28, torch.float32), ie28=t(ie28, torch.float32))
 
 
-def kernel_inputs(prep, W: int):
+def kernel_inputs(prep, W: int, dtype=torch.float32, lk_init: bool = False):
     """The two table kernels' arguments for a prepared batch: (fwd_args,
     bwd_args, aux) — the emission streams, band streams, the closed-form
-    forward row 0 and backward init; ``aux`` keeps what stitching needs."""
+    forward row 0 and backward init, in ``dtype`` (float32, or float64 for
+    the gradient's tables); ``aux`` keeps what stitching needs.
+
+    The backward init is d(end-cell mass) / d(cell) at the last row; with
+    ``lk_init`` it is d(end-cell mass + EPS * row mass) / d(cell), the
+    backward of lk = log(fin + EPS) + fcum itself: where the end cell holds
+    less than EPS of its row, lk is floored and its gradient is that of
+    the row's whole mass (the gradient's tables)."""
     p = prep
     qs = p["qs"]
     B, Q = qs.shape
@@ -327,11 +367,11 @@ def kernel_inputs(prep, W: int):
     offs = p["offs"]
     sf = p["strand"].to(torch.float32)[:, None]
     tr1, tr2 = p["trans"], p["trans2"]
-    tmd = (1.0 - sf) * tr1[0, 2] + sf * tr2[0, 2]
-    tdd = (1.0 - sf) * tr1[2, 2] + sf * tr2[2, 2]
-    tid = (1.0 - sf) * tr1[1, 2] + sf * tr2[1, 2]
+    tmd = ((1.0 - sf) * tr1[0, 2] + sf * tr2[0, 2]).to(dtype)
+    tdd = ((1.0 - sf) * tr1[2, 2] + sf * tr2[2, 2]).to(dtype)
+    tid = ((1.0 - sf) * tr1[1, 2] + sf * tr2[1, 2]).to(dtype)
     ks = torch.arange(W, dtype=torch.int64, device=dev)
-    kf = ks.to(torch.float32)
+    kf = ks.to(dtype)
     i32 = torch.int32
     shifts = (offs[:, 1:] - offs[:, :-1]).to(i32).contiguous()
     # r_pad[x] = 4 for x == 0, r[x-1] after (front sentinel); r_pad2[x] =
@@ -345,7 +385,7 @@ def kernel_inputs(prep, W: int):
     rc0 = torch.gather(r_pad, 1, j0).contiguous()
     tl_col = t_lens[:, None]
     # forward row 0 (closed form: M at j = 0, D chain along the row)
-    M0 = (j0 == 0).to(torch.float32)
+    M0 = (j0 == 0).to(dtype)
     logtdd = torch.log(torch.clamp(tdd, min=1e-30))
     D0 = torch.where(ks[None] >= 1,
                      tmd * torch.exp(logtdd * torch.clamp(kf[None] - 1, min=0)),
@@ -371,14 +411,23 @@ def kernel_inputs(prep, W: int):
     bidx = torch.arange(B, device=dev)
     offQ = offs[bidx, q_lens]
     jQ = offQ[:, None] + ks[None]
-    kT = (t_lens - offQ)[:, None].to(torch.float32)
+    kT = (t_lens - offQ)[:, None].to(dtype)
     bD0 = torch.where(kf[None] <= kT,
                       torch.exp(logtdd * torch.clamp(kT - kf[None], min=0)),
                       0.0)
-    bD_next = torch.cat([bD0[:, 1:], torch.zeros((B, 1), device=dev)], 1)
+    bD_next = torch.cat([bD0[:, 1:], torch.zeros((B, 1), dtype=dtype,
+                                                 device=dev)], 1)
     bM0 = torch.where(kf[None] == kT, 1.0, tmd * bD_next)
     bI0 = torch.where(kf[None] == kT, 1.0, tid * bD_next)
     valid = jQ <= tl_col
+    if lk_init:
+        # every cell of the row: a path ends there, or goes on along the
+        # Del chain (the valid lanes are a prefix, j <= t_len)
+        aD = _linrec(valid.to(dtype), tdd, rev=True)
+        aD_next = _shl(aD)
+        bM0 = bM0 + EPS * (1.0 + tmd * aD_next)
+        bI0 = bI0 + EPS * (1.0 + tid * aD_next)
+        bD0 = bD0 + EPS * aD
     bM0 = torch.where(valid, bM0, 0.0)
     bI0 = torch.where(valid, bI0, 0.0)
     bD0 = torch.where(valid, bD0, 0.0)
@@ -398,13 +447,17 @@ def kernel_inputs(prep, W: int):
     return fwd_args, bwd_args, aux
 
 
-def tables_batch(prep, W: int, backward: bool = True):
-    """Both table passes + stitching for a prepared batch.
+def tables_batch(prep, W: int, backward: bool = True,
+                 dtype=torch.float32, lk_init: bool = False):
+    """Both table passes + stitching for a prepared batch, in ``dtype``
+    (float32; float64 only for the gradient, :mod:`.phmm_grad`, which also
+    asks for the backward of lk itself, ``lk_init``: see
+    :func:`kernel_inputs`).
 
     Returns (lk (B,), (fM, fI, fD) (B, Q+1, W), fcum (B, Q+1),
     rcs (B, Q+1, W), (bM, bI, bD), bcum, offs); the backward members are
     None when ``backward`` is False."""
-    fwd_args, bwd_args, aux = kernel_inputs(prep, W)
+    fwd_args, bwd_args, aux = kernel_inputs(prep, W, dtype, lk_init)
     q_lens, t_lens, offs = prep["q_lens"], prep["t_lens"], prep["offs"]
     B, Q = prep["qs"].shape
     dev = offs.device
@@ -434,7 +487,8 @@ def tables_batch(prep, W: int, backward: bool = True):
     bM[bidx, q_lens] = bM0n
     bI[bidx, q_lens] = bI0n
     bD[bidx, q_lens] = bD0n
-    b_lss = torch.cat([b_ls, torch.zeros((B, 1), device=dev)], 1)
+    b_lss = torch.cat([b_ls, torch.zeros((B, 1), dtype=dtype, device=dev)],
+                      1)
     b_lss[bidx, q_lens] = aux["lsI"]
     bcum = torch.flip(torch.cumsum(torch.flip(b_lss, [1]), 1), [1])
     return lk, (fM, fI, fD), fcum, rcs, (bM, bI, bD), bcum, offs

@@ -108,9 +108,11 @@ def test_edit_dp_and_walk_kernels_match_plain(W, B, clen):
 
 @pytest.mark.parametrize("W,B,spread", [
     (128, 24, False), (160, 24, False), (256, 23, False), (512, 22, False),
-    (1000, 6, False), (1152, 6, False), (128, 23, True), (1152, 5, True)],
+    (1000, 6, False), (1152, 6, False), (128, 23, True), (1152, 5, True),
+    (2176, 3, False), (4096, 2, True)],
     ids=["W128", "W160", "W256-B23", "W512", "W1000", "W1152",
-         "W128-qlen-spread-B23", "W1152-qlen-spread"])
+         "W128-qlen-spread-B23", "W1152-qlen-spread", "W2176-wide",
+         "W4096-wide-qlen-spread"])
 def test_table_kernels_match_plain(W, B, spread):
     """Both table kernels against their plain versions at every geometry
     the band widths of the pipeline reach (W 128: one warp a pair; 160 and
@@ -208,8 +210,9 @@ def _pairs_cuda(rng, B, W, with_n=False):
 
 @pytest.mark.parametrize("W,B,with_n", [
     (64, 24, False), (128, 13, False), (130, 6, False), (256, 9, False),
-    (1152, 5, False), (128, 8, True)],
-    ids=["W64", "W128", "W130-masked", "W256", "W1152", "W128-N"])
+    (1152, 5, False), (128, 8, True), (2176, 3, False), (4096, 2, False)],
+    ids=["W64", "W128", "W130-masked", "W256", "W1152", "W128-N",
+         "W2176-wide", "W4096-wide"])
 def test_lk_kernel_matches_plain(W, B, with_n):
     """K1l at one warp a pair with 2 and 4 lanes a thread (W 64, 128; four
     and three pairs a block), two warps (W 130, most lanes of the second
@@ -230,7 +233,7 @@ def test_lk_kernel_matches_plain(W, B, with_n):
         assert float(got[1]) < float(got[0]) - 1000
 
 
-@pytest.mark.parametrize("W", [130, 256, 1152])
+@pytest.mark.parametrize("W", [130, 256, 1152, 2176, 4096])
 def test_counts_kernel_wide_band_matches_plain_bitwise_repeatable(W):
     """The counts kernel at two and nine band chunks a row (W 130: rows of
     a width that is not a multiple of 4, so 4-byte loads), against its
@@ -275,3 +278,136 @@ def test_counts_kernel_matches_plain_and_gradient_matches_autograd():
         grads.append([th[k].grad / float(q_lens.sum()) for k in th])
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4)
+
+
+def _table_inputs_cuda(rng, B, W, spread=False):
+    from jtk_tpu_torch.io import sim
+    from jtk_tpu_torch.ops import phmm_tables as pt
+    from jtk_tpu_torch.ops.banded_align import linear_offsets
+    from jtk_tpu_torch.ops.phmm import PHMMParams
+    T = max(600, W + 200)
+    Q = ((T + 40 + 63) // 64) * 64
+    tpl = np.full((B, T), 4, np.int8)
+    qs = np.full((B, Q), 4, np.int8)
+    q_lens = np.zeros(B, np.int64)
+    t_lens = np.zeros(B, np.int64)
+    offs = np.zeros((B, Q + 1), np.int64)
+    for b in range(B):
+        n = int(rng.integers(Q // 2, T)) if spread else \
+            T - int(rng.integers(0, 30))
+        t = sim.random_genome(rng, n)
+        r = sim.noisy_read(rng, t, 0.05)[:Q]
+        tpl[b, :len(t)], qs[b, :len(r)] = t, r
+        q_lens[b], t_lens[b] = len(r), len(t)
+        offs[b] = linear_offsets(len(r), len(t), Q, W)
+    return pt.prep_tables_inputs(qs, tpl, offs, q_lens, t_lens,
+                                 PHMMParams.default("cuda"), W,
+                                 device="cuda")
+
+
+@pytest.mark.parametrize("W,B", [(128, 9), (256, 5), (1000, 3), (1152, 3),
+                                 (2176, 2), (4096, 2)])
+def test_float64_table_kernels_match_plain(W, B):
+    """The gradient's float64 tables, forward and backward, against their
+    plain versions in float64: the register form up to 1024 lanes, the
+    wide form (8 lanes a thread to 2048, 16 to 4096) above."""
+    require_cuda()
+    from jtk_tpu_torch.ops import phmm_tables as pt
+    prep = _table_inputs_cuda(np.random.default_rng(W + 7), B, W)
+    fwd_args, bwd_args, _aux = pt.kernel_inputs(prep, W, torch.float64)
+    for kern, plain, args in ((pt.fwd_tables, pt.fwd_tables_plain, fwd_args),
+                              (pt.bwd_tables, pt.bwd_tables_plain, bwd_args)):
+        got, want = kern(*args), plain(*args)
+        assert all(g.dtype == torch.float64 for g in got)
+        for g, w in zip(got[:3], want[:3]):
+            torch.testing.assert_close(g, w, rtol=2e-3, atol=1e-5)
+        torch.testing.assert_close(torch.cumsum(got[3], 1),
+                                   torch.cumsum(want[3], 1), rtol=1e-4,
+                                   atol=2e-2)
+
+
+def test_counts_of_a_read_40_bases_late():
+    """A read that starts 40 bases late: the kernel's counts, from the
+    float64 tables, against the plain version, and its M + I emissions sum
+    to its length (in float32 tables they were off by ~1e13)."""
+    require_cuda()
+    from jtk_tpu_torch.io import sim
+    from jtk_tpu_torch.ops import phmm_grad as pg
+    from jtk_tpu_torch.ops.banded_align import linear_offsets
+    from jtk_tpu_torch.ops.phmm import PHMMParams
+    from jtk_tpu_torch.ops.polish import effective_band
+    rng = np.random.default_rng(0)
+    tlen = 300
+    tpl = sim.random_genome(rng, tlen)
+    reads = [sim.noisy_read(rng, tpl, 0.05)[:tlen + 16] for _ in range(6)]
+    reads[0] = reads[0][40:]
+    q_lens = np.array([len(r) for r in reads], np.int64)
+    W = effective_band(64, q_lens, tlen)
+    Q = ((int(q_lens.max()) + 63) // 64) * 64
+    qs = np.full((len(reads), Q), 4, np.int8)
+    for b, r in enumerate(reads):
+        qs[b, :len(r)] = r
+    offs = np.stack([linear_offsets(int(n), tlen, Q, W) for n in q_lens])
+    batch = pg.PairBatch(qs, tpl, offs, q_lens, tlen, W, device="cuda")
+    args = pg.counts_args(pg.counts_prep(PHMMParams.default("cuda"), batch),
+                          W)
+    got = pg.phmm_counts(*args)
+    torch.testing.assert_close(got, pg.phmm_counts_plain(*args), rtol=1e-3,
+                               atol=1e-4)
+    np.testing.assert_allclose(got[:, 9:].sum(1).cpu().numpy(), q_lens,
+                               rtol=1e-4)
+
+
+def _chain_case(rng, B, S, K, V, Rmax):
+    """Planted clusters for B chunks, the chain's start on the card, its
+    inputs and a generator for its draws."""
+    from jtk_tpu_torch.ops import cluster as pcl
+    dev = torch.device("cuda")
+    X = np.zeros((B, Rmax, V), np.float32)
+    Rs = np.zeros(B, np.int64)
+    for b in range(B):
+        R = Rmax - int(rng.integers(0, 8))
+        truth = rng.integers(0, K, R)
+        x = rng.normal(0, 0.6, (R, V))
+        for c in range(K):
+            cols = np.arange(V) % K == c
+            x[np.ix_(truth == c, cols)] += 2.0
+            x[np.ix_(truth != c, cols)] -= 1.0
+        X[b, :R] = x
+        Rs[b] = R
+    size_lk = np.stack([pcl.poisson_size_table(Rmax, Rmax / K, K)] * B)
+    Xt = torch.tensor(X, device=dev)
+    Rt = torch.tensor(Rs, device=dev)
+    slt = torch.tensor(size_lk, device=dev)
+    w = (torch.arange(Rmax, device=dev)[None] < Rt[:, None]).float()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(1 << 30)))
+    g0 = pcl._gumbel((B, S, K, Rmax), gen, dev)
+    return Xt, Rt, slt, pcl.chain_start(Xt, w, slt, K, g0), gen
+
+
+@pytest.mark.parametrize("B,S,K,V,Rmax", [(27, 20, 2, 8, 128),
+                                          (1, 20, 4, 12, 64),
+                                          (3, 4, 8, 40, 96)],
+                         ids=["path-b", "K4-V12", "K8-V40-column-groups"])
+def test_chain_kernel_matches_plain_bitwise(B, S, K, V, Rmax):
+    """The chain kernel against mcmc_chain_plain on the card, from the same
+    start and the same draws, over four draw blocks: every state tensor
+    (assignments, aggregates, sizes, lk, best lk and best assignment) is
+    the same bits after each block.  Path (b)'s shape (K 2 at compile
+    time), a run-time K, and V over 32 (two column groups)."""
+    require_cuda()
+    from jtk_tpu_torch.ops import cluster as pcl
+    X, Rt, size_lk, st, gen = _chain_case(np.random.default_rng(K * V), B,
+                                          S, K, V, Rmax)
+    plain = {k: v.clone() for k, v in st.items()}
+    for _block in range(4):
+        draws = pcl.block_draws(*pcl.generator_block(
+            gen, (pcl.DRAW_BLOCK, B, S), K, X.device), Rt, Rmax)
+        n0 = pcl.CHAIN_LAUNCHES.count
+        pcl.mcmc_chain(st, X, size_lk, *draws)
+        assert pcl.CHAIN_LAUNCHES.count == n0 + 1
+        pcl.mcmc_chain_plain(plain, X, size_lk, *draws)
+        for name, v in plain.items():
+            assert torch.equal(st[name], v), name
+    assert (st["best_lk"] >= st["lk"]).all()

@@ -1,13 +1,14 @@
 """Launch geometry of K1l, the counts kernel and K3: each Python geometry
 function against what its CUDA source instantiates, and the band widths
-each wrapper accepts (K1l and counts up to the K1 tables' 2048, K3 up to
-8192).  The wrappers check the width before anything reaches the card, so
-these run without one."""
+each wrapper accepts (the K1 family, tables, K1l and counts, up to 4096;
+K3 up to 8192).  The wrappers check the width before anything reaches the
+card, so these run without one."""
 
 import os
 import re
 
 import pytest
+import torch
 
 from jtk_tpu_torch.ops import edit_dp as k3
 from jtk_tpu_torch.ops import phmm_grad as pg
@@ -29,7 +30,8 @@ def _constant(src, name):
     return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
 
-@pytest.mark.parametrize("W", [1, 64, 128, 256, 1000, 1152, 2048])
+@pytest.mark.parametrize("W", [1, 64, 128, 256, 1000, 1152, 2048, 2049,
+                               2176, 4096])
 def test_lk_geometry_is_built(W):
     """K1l launches with the table kernels' geometry; phmm_lk.cu builds
     every (lanes, warps) pair tables_geometry picks."""
@@ -42,7 +44,8 @@ def test_lk_geometry_is_built(W):
 
 
 @pytest.mark.parametrize("W,Q", [(1, 1), (64, 128), (128, 2048), (130, 77),
-                                 (256, 2112), (1152, 2048), (2048, 2048)])
+                                 (256, 2112), (1152, 2048), (2048, 2048),
+                                 (2176, 2304), (4096, 2048)])
 def test_counts_geometry_matches_source(W, Q):
     """A unit is one warp's strip of rows by chunk of band lanes; the
     wrapper sizes the partials' scratch with the C side's constants."""
@@ -85,16 +88,51 @@ def test_edit_dp_geometry_is_built(W):
         assert lanes == 4 or -(-W // 4) > max_threads
 
 
-@pytest.mark.parametrize("W,ok", [(2048, True), (2049, False)])
+@pytest.mark.parametrize("W,ok", [(4096, True), (4097, False)])
 def test_lk_and_counts_band_limit(W, ok):
     if ok:
         pt.tables_geometry(W, "phmm_lk")
         pg.counts_geometry(W, 2048)
         return
-    with pytest.raises(ValueError, match="phmm_lk: band width 2049"):
+    with pytest.raises(ValueError, match="phmm_lk: band width 4097"):
         pt.tables_geometry(W, "phmm_lk")
-    with pytest.raises(ValueError, match="phmm_counts: band width 2049"):
+    with pytest.raises(ValueError, match="phmm_counts: band width 4097"):
         pg.counts_geometry(W, 2048)
+
+
+@pytest.mark.parametrize("W,ok", [(2048, True), (2049, True), (4096, True),
+                                  (4097, False)])
+def test_k1_family_band_limits_match_sources(W, ok):
+    """The K1 family's limit, 4096, in each wrapper and each C source
+    (tables in both types, K1l, counts); at 2048 the register form, past
+    it the wide form (shared-memory state) that each source builds."""
+    tables, lk, counts = (_source(n) for n in (
+        "phmm_tables.cu", "phmm_lk.cu", "phmm_counts.cu"))
+    for src in (tables, lk, counts):
+        assert _constant(src, "MAX_W") == pt.MAX_W == 4096
+    lk_built = {(int(a), int(b)) for a, b in re.findall(
+        r"X\((\d+), (\d+)\)", _macro(lk, "LK_GEOMETRIES"))}
+    if not ok:
+        for kernel in ("fwd_tables", "bwd_tables", "phmm_lk"):
+            with pytest.raises(ValueError, match=f"{kernel}: band width 4097"):
+                pt.tables_geometry(W, kernel)
+        with pytest.raises(ValueError, match="band width 4097"):
+            pt.tables_geometry(W, dtype=torch.float64)
+        with pytest.raises(ValueError, match="phmm_counts: band width 4097"):
+            pg.counts_geometry(W, 2048)
+        return
+    for dtype, macro in ((torch.float32, "TABLE_GEOMETRIES_F32"),
+                         (torch.float64, "TABLE_GEOMETRIES_F64")):
+        built = {(int(a), int(b)) for a, b in re.findall(
+            r"X\((\d+), (\d+)\)", _macro(tables, macro))}
+        lanes, warps, _pairs = pt.tables_geometry(W, dtype=dtype)
+        assert (lanes, warps) in built
+        assert (lanes > _constant(tables, "MAX_REG_LANES")) == (
+            W > pt.register_form_w(dtype))
+    lanes, warps, _pairs = pt.tables_geometry(W, "phmm_lk")
+    assert (lanes, warps) in lk_built
+    assert (lanes > _constant(lk, "MAX_REG_LANES")) == (W > 2048)
+    assert pg.counts_geometry(W, 2048) == 129 * -(-W // pg.COUNTS_CHUNK)
 
 
 @pytest.mark.parametrize("W,ok", [(8192, True), (8193, False)])

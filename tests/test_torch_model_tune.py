@@ -183,6 +183,131 @@ def test_counts_finite_for_a_read_that_starts_late(seed):
     np.testing.assert_allclose(c[:, 9:].sum(1).numpy(), q_lens, rtol=1e-4)
 
 
+def _lk64_masked(qs, shifts, inc, rc0, j0, qlen, tlen, trans, me, ie):
+    """phmm_lk_plain's recursion in float64, with row 0's tmd * M[k-1]
+    kept only where M[k-1] > 0: there 0 * inf is the only NaN of its
+    autograd gradient, for a read that starts late.  The mask leaves lk
+    unchanged."""
+    from jtk_tpu_torch.ops.phmm_tables import EPS, _linrec, _shl, _shr
+    B = rc0.shape[0]
+    tmm, tmi, tmd = trans[0, 0], trans[0, 1], trans[0, 2]
+    tim, tii, tid = trans[1, 0], trans[1, 1], trans[1, 2]
+    tdm, tdi, tdd = trans[2, 0], trans[2, 1], trans[2, 2]
+    me_f, ie_f = me.reshape(-1), ie.reshape(-1)
+    tl = tlen[:, None].to(torch.int64)
+    ql = qlen.to(torch.int64)
+    j, rc = j0.to(torch.int64), rc0.to(torch.int64)
+    M = (j == 0).to(torch.float64)
+    I = torch.zeros_like(M)
+    sM = _shr(M)
+    D = _linrec(torch.where(sM > 0, tmd * sM, 0.0), tdd)
+    D = torch.where((j >= 1) & (j <= tl), D, 0.0)
+    s0 = (M + I + D).sum(1, keepdim=True) + EPS
+    M, I, D = M / s0, I / s0, D / s0
+    logs = torch.log(s0[:, 0])
+    qprev = torch.full((B,), 4, dtype=torch.int64)
+    for r in range(int(ql.max())):
+        qc = qs[:, r].to(torch.int64)
+        sv = shifts[:, r:r + 1].to(torch.int64)
+        one = sv == 1
+        Md, Id, Dd = (torch.where(one, x, _shr(x)) for x in (M, I, D))
+        Mu, Iu, Du = (torch.where(one, _shl(x), x) for x in (M, I, D))
+        rc = torch.where(one, torch.cat([rc[:, 1:], inc[:, r:r + 1]
+                                         .to(torch.int64)], 1), rc)
+        jn = j + sv
+        ok = (jn >= 1) & (jn <= tl)
+        em = torch.where(ok, me_f[rc * 8 + qc[:, None]], 0.0)
+        ei = ie_f[qprev * 8 + qc][:, None]
+        Mrow = em * (tmm * Md + tim * Id + tdm * Dd)
+        Irow = torch.where(jn <= tl, ei * (tmi * Mu + tii * Iu + tdi * Du),
+                           0.0)
+        Drow = torch.where(ok, _linrec(_shr(tmd * Mrow + tid * Irow), tdd),
+                           0.0)
+        sc = (Mrow + Irow + Drow).sum(1, keepdim=True) + EPS
+        live = (r + 1 <= ql)[:, None]
+        M = torch.where(live, Mrow / sc, M)
+        I = torch.where(live, Irow / sc, I)
+        D = torch.where(live, Drow / sc, D)
+        logs = logs + torch.where(live[:, 0], torch.log(sc[:, 0]), 0.0)
+        j = torch.where(live, jn, j)
+        qprev = qc
+    fin = torch.where(j == tl, M + I + D, 0.0).sum(1)
+    return torch.log(fin + EPS) + logs, fin
+
+
+def _autograd_counts(batch, params):
+    """Expected counts p * d lk / d p of each pair by float64 autograd
+    through the masked recursion, and each pair's end-cell mass."""
+    tabs = [x.to(torch.float64).requires_grad_(True)
+            for x in k1l.tables8(params, "cpu")]
+    lk, fin = _lk64_masked(*batch.lk_args, *tabs)
+    rows = []
+    for b in range(len(lk)):
+        g = torch.autograd.grad(lk[b], tabs, retain_graph=True)
+        rows.append(torch.cat([(g[0] * tabs[0])[:3, :3].reshape(-1),
+                               (g[1] * tabs[1])[:4, :4].reshape(-1),
+                               (g[2] * tabs[2])[:5, :4].reshape(-1)]))
+    return torch.stack(rows).detach(), fin.detach()
+
+
+@pytest.mark.parametrize("late,early,tlen,n,W,W_want,floored", [
+    (26, 0, 300, 6, None, 128, False), (40, 0, 300, 6, None, 128, False),
+    (120, 0, 720, 3, None, 256, False), (120, 0, 300, 4, None, 256, True),
+    (0, 40, 300, 4, None, 128, True), (40, 0, 300, 2, 2176, 2176, False)])
+def test_counts_of_a_late_read_match_float64_autograd(late, early, tlen, n,
+                                                      W, W_want, floored):
+    """A read that starts 26, 40 or 120 bases late in its template opens
+    with a deletion run of weight ~tdd^(late - 1), under float32's range in
+    a row scaled once.  The gradient's float64 tables keep it: the counts
+    of every pair match float64 autograd through the masked recursion
+    (rtol 1e-3 on the 45 counts) and the M + I emissions sum to q_len
+    (rtol 1e-4), at the effective band (128; 256 for 120 late) and at a
+    band wider than 2048 (the wide form's width).  Where the read's end
+    cell holds less than EPS of its row (120 late on a 300-base template;
+    a read that ends 40 bases early), lk = log(fin + EPS) + fcum is
+    floored, and the counts are the floored lk's gradient."""
+    rng = np.random.default_rng(0)
+    template = sim.random_genome(rng, tlen)
+    reads = [sim.noisy_read(rng, template, 0.05)[:tlen + 16]
+             for _ in range(n)]
+    reads[0] = reads[0][late:len(reads[0]) - early]
+    qs, offs, q_lens, W_eff = _batch(template, reads)
+    if W is not None:
+        Qpad = qs.shape[1]
+        offs = np.stack([linear_offsets(int(q), tlen, Qpad, W)
+                         for q in q_lens])
+        W_eff = W
+    assert W_eff == W_want
+    batch = pg.PairBatch(qs, template, offs, q_lens, tlen, W_eff)
+    params = pphmm.PHMMParams.default("cpu")
+    args = pg.counts_args(pg.counts_prep(params, batch), W_eff)
+    assert args[0].dtype == torch.float64
+    got = pg.phmm_counts(*args).to(torch.float64)
+    want, fin = _autograd_counts(batch, params)
+    assert bool(fin[0] < 1e-30) == floored and bool(fin[1:].min() > 1e-24)
+    np.testing.assert_allclose(want[:, 9:].sum(1).numpy(), q_lens, rtol=1e-6)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-3,
+                               atol=1e-4)
+    np.testing.assert_allclose(got[:, 9:].sum(1).numpy(), q_lens, rtol=1e-4)
+
+
+def test_gradient_counts_in_slices_match_whole_batch(monkeypatch):
+    """The gradient cuts a batch whose float64 tables pass
+    COUNTS_TABLE_BYTES into slices of pairs: the counts are a pair's
+    alone, so the slices give the whole batch's counts."""
+    rng = np.random.default_rng(9)
+    template = sim.random_genome(rng, 160)
+    reads = [sim.noisy_read(rng, template, 0.08) for _ in range(5)]
+    qs, offs, q_lens, W = _batch(template, reads)
+    batch = pg.PairBatch(qs, template, offs, q_lens, len(template), W)
+    prep = pg.counts_prep(pphmm.PHMMParams.default("cpu"), batch)
+    whole = pg.batch_counts(prep, W)
+    per_pair = 6 * (qs.shape[1] + 1) * W * 8
+    monkeypatch.setattr(pg, "COUNTS_TABLE_BYTES", 2 * per_pair)
+    assert pg.counts_slices(5, qs.shape[1], W) == [(0, 2), (2, 4), (4, 5)]
+    assert torch.equal(pg.batch_counts(prep, W), whole)
+
+
 def test_ten_train_steps_match_jax():
     rng = np.random.default_rng(2)
     template, reads = _full_length_batch(rng, n=10)

@@ -8,6 +8,7 @@ import re
 
 import numpy as np
 import pytest
+import torch
 
 from jtk_tpu.datamodel import HMMParam
 from jtk_tpu.io import sim
@@ -22,34 +23,57 @@ CU = os.path.join(os.path.dirname(pt.__file__), os.pardir, "csrc",
                   "phmm_tables.cu")
 
 
-def _built_geometries():
-    """(lanes, warps) pairs the CUDA source instantiates."""
+def _built_geometries(dtype=torch.float32):
+    """(lanes, warps) pairs the CUDA source instantiates for ``dtype``."""
     with open(CU) as f:
         src = f.read()
-    body = re.search(r"#define TABLE_GEOMETRIES\(X\)(.*?)\n\n", src,
+    name = "F64" if dtype == torch.float64 else "F32"
+    body = re.search(rf"#define TABLE_GEOMETRIES_{name}\(X\)(.*?)\n\n", src,
                      re.S).group(1)
     return {(int(a), int(b)) for a, b in
             re.findall(r"X\((\d+), (\d+)\)", body)}
 
 
-@pytest.mark.parametrize("W", [1, 31, 32, 128, 160, 512, 1024, 1152, 2048])
+@pytest.mark.parametrize("W", [1, 31, 32, 128, 160, 512, 1024, 1152, 2048,
+                               2049, 2176, 4096])
 def test_tables_geometry_covers_band(W):
     lanes, warps, pairs = pt.tables_geometry(W)
     assert 32 * lanes * warps >= W
+    assert (lanes, warps) in _built_geometries()
+    if W > pt.register_form_w():
+        # the wide form: the state in shared memory, one pair a block
+        assert (warps, pairs) == (pt.WIDE_WARPS, 1)
+        assert lanes > pt.MAX_LANES and 16 * lanes * warps < W
+        return
     # no more threads than the band needs: half of them would not cover it
     assert lanes == 1 and warps == 1 or 16 * lanes * warps < W
     # the register budget: a thread keeps at most MAX_LANES lanes of each
     # table (chip_smoke.py fails on a ptxas spill of any built geometry)
     assert lanes <= pt.MAX_LANES
-    assert (lanes, warps) in _built_geometries()
     # a block holds 4 warps, or one pair of more
     assert pairs >= 1 and warps * pairs == max(4, warps)
 
 
-@pytest.mark.parametrize("W", [0, 2049, 4096])
+@pytest.mark.parametrize("W", [1, 128, 256, 1024, 1025, 2048, 2049, 4096])
+def test_float64_tables_geometry_is_built(W):
+    """The gradient's float64 tables: the register form up to 1024 lanes
+    (at most 8 warps, so 256 threads a block), the wide form above."""
+    lanes, warps, pairs = pt.tables_geometry(W, dtype=torch.float64)
+    assert 32 * lanes * warps >= W
+    assert (lanes, warps) in _built_geometries(torch.float64)
+    if W <= 1024:
+        assert (lanes, warps, pairs) == pt.tables_geometry(W)
+        assert warps <= 8
+    else:
+        assert (lanes, warps, pairs) == ((8 if W <= 2048 else 16), 8, 1)
+
+
+@pytest.mark.parametrize("W", [0, 4097, 8192])
 def test_tables_geometry_rejects_band(W):
     with pytest.raises(ValueError):
         pt.tables_geometry(W)
+    with pytest.raises(ValueError):
+        pt.tables_geometry(W, dtype=torch.float64)
 
 
 def test_tables_match_jax_at_band_1152():
