@@ -7,9 +7,9 @@
 2. builds the CUDA kernels of ``jtk_tpu_torch/csrc`` (one nvcc per source,
    started together), fails on a ptxas spill of K3 (its DP and walk), the
    K1 family, counts or the MCMC chain, and prints the SASS row-loop
-   statistics of K3's
-   warp-form DP and of its walk (``tools/sass_loop_stats``), failing on a
-   block-wide barrier in either loop;
+   statistics of K3's warp-form DP, of its walk and of the MCMC chain's
+   step loop (``tools/sass_loop_stats``), failing on a block-wide barrier
+   in any of them;
 3. holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (K3 at the mapper's B 2048 and at path (b)'s own K3
    shapes; the K1 tables at polish's B 192 / W 128 and W 512 and model
@@ -17,10 +17,12 @@
    256 / W 64 and with an N; the gradient's float64 tables at model
    tuning's B 40 / W 128 and 256; counts, from float64 tables, also with
    reads that start 22 and 40 bases late; the MCMC chain at path (b)'s
-   B 27 x 20 restarts / K 2 / V 8, at K 4 / V 12 and at K 8 / V 40) and
-   then, in a last step, at the band widths above 1024 that the pipeline
-   can reach (K3 up to 8192, the K1 family, tables, K1l and counts, up to
-   4096), and times both with CUDA events, each beside its bound: K3's DP
+   B 27 x 20 restarts / K 2 / V 8, at K 4 / V 12, at K 8 / V 40 and at a
+   1 Mb run's 414 chunks x 20 / K 2 / V 8) and then, in a last step, at
+   the band widths above 1024 that the pipeline can reach (K3 to 16 384,
+   int32 cells above 8192; the K1 family, tables in both types, K1l and
+   counts, to 8192, the scratch form above 4096), and times both with
+   CUDA events, each beside its bound: K3's DP
    bit-exact
    on each pair's stream rows below its q_len and the last row, its walk
    bit-exact against the plain walk, and the decoded CIGARs; the K1 tables
@@ -31,7 +33,8 @@
    gradient within rtol 1e-3 / atol 1e-4 (per bp) of torch.autograd
    through the plain forward; the MCMC chain bit-exact against its plain
    version over four draw blocks (every state tensor), timed per
-   1024-step launch and per clustering call of 100 000 steps;
+   1024-step launch (the register form also against the general form at
+   path (b)'s shape) and per clustering call of 100 000 steps;
 4. path (a): the stage-by-stage slice reads -> GFA (entry, mask_repeats,
    select_chunks, pick_top_n_component, estimate/purge multiplicity,
    local_clustering, assemble with contig polishing) on a simulated 60 kb
@@ -172,13 +175,14 @@ def k3_bounds(B, Q, W, rows):
     """The DP's and the walk's bounds (roofline) for B pairs whose q_lens
     sum to ``rows`` (both stop at each pair's q_len).  The DP reads its
     (B, W) rows once and its row streams up to q_len, writes the stream up
-    to q_len and the last row; ~20 integer operations a cell.  The walk
-    reads at most two stream cells and one band offset a step, q_len and
-    end_j a pair, and writes dels and ops of every step and start_j; ~15
-    integer operations a step."""
-    dp = roofline(4 * (3 * B * W + 3 * rows + 2 * B) + 2 * W * rows
+    to q_len (2-byte cells, 4 above 8192 lanes) and the last row; ~20
+    integer operations a cell.  The walk reads at most two stream cells and
+    one band offset a step, q_len and end_j a pair, and writes dels and ops
+    of every step and start_j; ~15 integer operations a step."""
+    cell = 2 if W <= 8192 else 4
+    dp = roofline(4 * (3 * B * W + 3 * rows + 2 * B) + cell * W * rows
                   + 4 * B * W, 20.0 * W * rows)
-    tb = roofline((2 * 2 + 8) * rows + 5 * B * Q + 20 * B, 15.0 * rows)
+    tb = roofline((2 * cell + 8) * rows + 5 * B * Q + 20 * B, 15.0 * rows)
     return dp, tb
 
 
@@ -368,9 +372,11 @@ def check_k3(rng, dev, sm_ghz):
 
 def _k3_wide(rng, dev, Wd):
     """K3 at band width ``Wd`` > 1024 (consensus tiles of more than ~7 kb;
-    the warp form's 9-16 warps a pair, the block form above 2048),
-    bit-exact with its walk (:func:`_k3_case`); its times and bounds."""
-    kargs, off = _k3_wide_inputs(rng, dev, W=Wd)
+    the warp form's 9-16 warps a pair, the block form above 2048, the
+    scratch form with int32 cells above 8192, at B 2 there: a stream of
+    W 16 384 takes 2.2 GB at B 2), bit-exact with its walk
+    (:func:`_k3_case`); its times and bounds."""
+    kargs, off = _k3_wide_inputs(rng, dev, W=Wd, B=8 if Wd <= 8192 else 2)
     dp, tb, _ = _k3_case(f"W{Wd}", dev, kargs, off, "infix")
     return dp, tb
 
@@ -809,15 +815,16 @@ def _counts_case(rng, dev, label, short, tlen=2000, B=40):
 
 def check_wide(rng, dev, rows):
     """The last step: the band widths above 1024 that the pipeline can
-    reach, K3 and its walk at W 1152, 2048, 4096 and 8192 (its limit), the
-    K1 tables at TABLE_WIDE_SHAPES, K1l at LK_WIDE_SHAPES and counts at
-    COUNTS_WIDE_SHAPES, each held to its check at the main shapes, and the
-    K1 family's refusal of W 4097; their times go into ``rows`` (the K3,
-    walk, K1f, K1b, K1l and counts rows of the kernels line, by name)."""
+    reach, K3 and its walk at W 1152, 2048, 4096, 8192, and past the old
+    limit at 8320 and 16 384 (int32 cells), the K1 tables at
+    TABLE_WIDE_SHAPES, K1l at LK_WIDE_SHAPES and counts at
+    COUNTS_WIDE_SHAPES, each held to its check at the main shapes, and
+    past the K1 family's old limit, 4096, the four kernels at K1_BEYOND;
+    their times go into ``rows`` (the K3, walk, K1f, K1b, K1l and counts
+    rows of the kernels line, by name)."""
     import torch
 
     by_name = {r["name"]: r for r in rows}
-    refuse_k1_beyond_limit(dev)
     for shape in TABLE_WIDE_SHAPES:
         res = _tables_case(rng, dev, *shape)
         for kind, name in (("fwd", "fwd_tables (K1f)"),
@@ -826,7 +833,7 @@ def check_wide(rng, dev, rows):
             row[f"at_{shape[0]}"] = _at_table(res[kind])
             row["max_abs_err"] = max(row["max_abs_err"], res[kind]["err"])
         torch.cuda.empty_cache()
-    for Wd in (1152, 2048, 4096, 8192):
+    for Wd in (1152, 2048, 4096, 8192, 8320, 16384):
         dp, tb = _k3_wide(rng, dev, Wd)
         by_name["edit_dp (K3)"][f"at_W{Wd}"] = dp
         by_name["edit_tb (K3 walk)"][f"at_W{Wd}"] = tb
@@ -841,48 +848,136 @@ def check_wide(rng, dev, rows):
         r = _counts_case(rng, dev, *shape)
         counts_row[f"at_{r['label']}"] = _at(r)
         counts_row["max_abs_err"] = max(counts_row["max_abs_err"], r["err"])
+    for W in K1_BEYOND:
+        accept_k1_beyond_limit(rng, dev, W, by_name)
+        torch.cuda.empty_cache()
 
 
-def refuse_k1_beyond_limit(dev):
-    """K1f, K1b, K1l and counts refuse a band of 4097 lanes on the card
-    with a ValueError that names the width, before any launch."""
+# past the K1 family's old limit, 4096 (the scratch form): a short read
+# against a long template widens the band there (``effective_band``)
+K1_BEYOND = (4224, 8192)
+
+
+def _beyond_pairs(rng, W, B=2, qlen=300):
+    """B reads of ~``qlen`` bases from the two ends of a template W + 200
+    long, in a band of W (what ``effective_band`` gives a pileup with such
+    a read): the pair layout past the K1 family's old limit, at a size
+    whose plain versions take seconds on the card."""
+    import numpy as np
+
+    from jtk_tpu_torch.io import sim
+    from jtk_tpu_torch.ops.banded_align import linear_offsets
+
+    tlen = W + 200
+    tpl = sim.random_genome(rng, tlen)
+    reads = [sim.noisy_read(rng, tpl[s:s + qlen], 0.05)
+             for s in ((0, tlen - qlen) * B)[:B]]
+    q_lens = np.array([len(r) for r in reads], np.int64)
+    Q = ((int(q_lens.max()) + 63) // 64) * 64
+    qs = np.full((B, Q), 4, np.int8)
+    for b, r in enumerate(reads):
+        qs[b, :len(r)] = r
+    offs = np.stack([linear_offsets(int(n), tlen, Q, W) for n in q_lens])
+    return tpl, qs, offs, q_lens
+
+
+def accept_k1_beyond_limit(rng, dev, W, by_name):
+    """K1f and K1b (float32 and float64), K1l and counts at band width W
+    past the old limit of 4096 (the scratch form), against their plain
+    versions at the main shapes' tolerances: tables rtol 2e-3 / atol 1e-5,
+    cumulative log scales and lk rtol 1e-4 / atol 2e-2, counts rtol 1e-3 /
+    atol 1e-4 and bitwise equal in two calls.  Times go into the rows of
+    ``by_name`` as ``at_W{W}`` (``_f64`` for the float64 tables)."""
     import torch
 
     from jtk_tpu_torch.ops import phmm_grad as pg
     from jtk_tpu_torch.ops import phmm_lk as k1l
     from jtk_tpu_torch.ops import phmm_tables as pt
+    from jtk_tpu_torch.ops.phmm import PHMMParams
 
-    B, Q, W = 1, 8, 4097
-    i32 = torch.int32
-    z = torch.zeros((B, W), device=dev)
-    zi = torch.zeros((B, W), dtype=i32, device=dev)
-    row = torch.zeros((B, Q), dtype=i32, device=dev)
-    one = torch.ones(B, dtype=i32, device=dev)
-    t8 = torch.zeros((8, 8), device=dev)
-    emis = torch.zeros((B, 5 * Q), device=dev)
-    t64 = torch.zeros((B, Q + 1, W), dtype=torch.float64, device=dev)
-    c64 = torch.zeros((B, Q + 1), dtype=torch.float64, device=dev)
-    calls = (
-        ("fwd_tables", lambda: pt.fwd_tables(
-            emis, row, row, zi, zi, z, z, z, one, one, one, t8, t8)),
-        ("bwd_tables", lambda: pt.bwd_tables(
-            emis, row, row, zi, zi, z, z, z, one, one, one, t8, t8)),
-        ("phmm_lk", lambda: k1l.phmm_lk(row, row, row, zi, zi, one, one, t8,
-                                        t8, t8)),
-        ("phmm_counts", lambda: pg.phmm_counts(
-            t64, t64, t64, t64, t64, t64, c64, c64,
-            torch.zeros((B, Q + 1, W), dtype=i32, device=dev), row, row, one,
-            torch.zeros(B, dtype=torch.float64, device=dev), t8, t8, t8)))
-    for name, call in calls:
-        try:
-            call()
-        except ValueError as e:
-            if "4097" not in str(e):
-                raise AssertionError(f"{name} at W 4097: unclear refusal "
-                                     f"({e})") from e
-            log(f"{name} at W 4097 refuses: {e}")
-            continue
-        raise AssertionError(f"{name} accepted W 4097")
+    tpl, qs, offs, q_lens = _beyond_pairs(rng, W)
+    B, Q = qs.shape
+    tlen = len(tpl)
+    rows = float(q_lens.sum())
+    params = PHMMParams.default(dev)
+    prep = pt.prep_tables_inputs(qs, tpl, offs, q_lens, tlen, params, W,
+                                 device=dev)
+    for type_name in ("f32", "f64"):
+        dtype = _table_type(type_name)
+        fwd_args, bwd_args, _aux = pt.kernel_inputs(prep, W, dtype)
+        for kind, args, kern, plain, name in (
+                ("fwd", fwd_args, pt.fwd_tables, pt.fwd_tables_plain,
+                 "fwd_tables (K1f)"),
+                ("bwd", bwd_args, pt.bwd_tables, pt.bwd_tables_plain,
+                 "bwd_tables (K1b)")):
+            got = kern(*args)
+            plain_ms, want = timed_once(lambda: plain(*args))
+            err = 0.0
+            for g, w in zip(got[:3], want[:3]):
+                if g.dtype != dtype or not torch.allclose(g, w, rtol=2e-3,
+                                                          atol=1e-5):
+                    raise AssertionError(
+                        f"K1 {kind} W{W} {type_name}: tables differ (max "
+                        f"{float((g - w).abs().max())})")
+                err = max(err, float((g - w).abs().max()))
+            cg, cw = torch.cumsum(got[3], 1), torch.cumsum(want[3], 1)
+            if not torch.allclose(cg, cw, rtol=1e-4, atol=2e-2):
+                raise AssertionError(
+                    f"K1 {kind} W{W} {type_name}: log scales differ (max "
+                    f"{float((cg - cw).abs().max())})")
+            err = max(err, float((cg - cw).abs().max()))
+            ms = cuda_time(lambda: kern(*args), reps=3)
+            bound_ms, bound_by = roofline(nbytes(*args) + nbytes(*got),
+                                          40.0 * W * rows)
+            log(f"K1 {kind}_tables W{W} {type_name} B={B} Q={Q} (scratch "
+                f"form, past the old limit 4096): max abs err {err:.3g}, "
+                f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+                f"{bound_ms:.4f} ms")
+            row = by_name[name]
+            suffix = "" if type_name == "f32" else "_f64"
+            row[f"at_W{W}{suffix}"] = dict(B=B, Q=Q, W=W, type=type_name,
+                                           ms=ms, plain_ms=plain_ms,
+                                           bound_ms=bound_ms)
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            del got, want
+    tabs = k1l.tables8(params, dev)
+    args = k1l.lk_inputs(qs, tpl, offs, q_lens, tlen, W, device=dev)
+    got = k1l.phmm_lk(*args, *tabs)
+    plain_ms, want = timed_once(lambda: k1l.phmm_lk_plain(*args, *tabs))
+    if not torch.allclose(got, want, rtol=1e-4, atol=2e-2):
+        raise AssertionError(f"K1l W{W}: lk differs from plain (max "
+                             f"{float((got - want).abs().max())})")
+    err = float((got - want).abs().max())
+    ms = cuda_time(lambda: k1l.phmm_lk(*args, *tabs), reps=3)
+    bound_ms, _by = roofline(nbytes(*args, *tabs) + 4 * B, 40.0 * W * rows)
+    log(f"K1l phmm_lk W{W} B={B} Q={Q} (scratch form): max abs err "
+        f"{err:.3g}, kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+        f"{bound_ms:.4f} ms")
+    row = by_name["phmm_lk (K1l)"]
+    row[f"at_W{W}"] = dict(B=B, Q=Q, W=W, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms)
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    batch = pg.PairBatch(qs, tpl, offs, q_lens, tlen, W, device=dev)
+    cargs = pg.counts_args(pg.counts_prep(params, batch), W)
+    got = pg.phmm_counts(*cargs)
+    again = pg.phmm_counts(*cargs)
+    plain_ms, want = timed_once(lambda: pg.phmm_counts_plain(*cargs))
+    if not torch.allclose(got, want, rtol=1e-3, atol=1e-4):
+        raise AssertionError(f"counts W{W}: kernel differs from plain (max "
+                             f"{float((got - want).abs().max())})")
+    if not torch.equal(got, again):
+        raise AssertionError(f"counts W{W}: two calls differ")
+    err = float((got - want).abs().max())
+    ms = cuda_time(lambda: pg.phmm_counts(*cargs), reps=3)
+    bound_ms, _by = roofline(nbytes(*cargs) + got.numel() * 4,
+                             60.0 * W * (rows + B))
+    log(f"counts W{W} B={B} Q={Q} (float64 tables of the scratch form): max "
+        f"abs err {err:.3g}, bitwise equal in two calls, kernel {ms:.3f} "
+        f"ms, plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms")
+    row = by_name["phmm_counts (lk gradient)"]
+    row[f"at_W{W}"] = dict(B=B, Q=Q, W=W, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms)
+    row["max_abs_err"] = max(row["max_abs_err"], err)
 
 
 # ---------------------------------------------------------------------------
@@ -892,8 +987,10 @@ def refuse_k1_beyond_limit(dev):
 
 # (B chunks, S restarts, K, V, Rmax): path (b)'s clustered phase (27
 # chunks, K 2, V 8 after padding), the recursive path's K 4 on one chunk,
-# and K 8 / V 40 (two column groups of 32, a run-time K)
-CHAIN_SHAPES = ((27, 20, 2, 8, 128), (1, 20, 4, 12, 64), (3, 4, 8, 40, 96))
+# K 8 / V 40 (two column groups of 32, a run-time K: the general form),
+# and a 1 Mb run's 414 chunks (VALIDATE_r05.json) at path (b)'s K and V
+CHAIN_SHAPES = ((27, 20, 2, 8, 128), (1, 20, 4, 12, 64), (3, 4, 8, 40, 96),
+                (414, 20, 2, 8, 128))
 CHAIN_K_STEPS = 100_000   # a clustering call's steps: min(2000 Rmax, 1e5)
 
 
@@ -981,16 +1078,25 @@ def check_chain(rng, dev, sm_ghz):
                         f"from the plain chain after block {blk}")
         ms = cuda_time(lambda: pcl.mcmc_chain(st, X, size_lk, *draws),
                        reps=5)
+        form = getattr(pcl, "chain_form", lambda *a: "general")(K, V, Rmax)
+        general_ms = None
+        if form != "general":   # the general form on the same state
+            general_ms = cuda_time(lambda: pcl.mcmc_chain(
+                st, X, size_lk, *draws, general=True), reps=5)
         plain_ms = cuda_time(lambda: pcl.mcmc_chain_plain(
             plain, X, size_lk, *draws), reps=1, warmup=0)
         bound_ms, bound_by = chain_bound(B, S, K, V, Rmax, pcl.DRAW_BLOCK)
         chain_ms, cycles = chain_latency(K, pcl.DRAW_BLOCK, sm_ghz)
         log(f"mcmc_chain B={B} S={S} K={K} V={V} Rmax={Rmax}: bit-exact "
-            f"over 4 blocks, kernel {ms:.3f} ms a {pcl.DRAW_BLOCK}-step "
-            f"launch, plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms "
+            f"over 4 blocks, kernel ({form} form) {ms:.3f} ms a "
+            f"{pcl.DRAW_BLOCK}-step launch"
+            + ("" if general_ms is None else
+               f" (general form {general_ms:.3f} ms)")
+            + f", plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by}), its chain {chain_ms:.3f} ms ({cycles} cycles a "
             f"step at {sm_ghz:.3f} GHz)")
-        res.append(dict(B=B, S=S, K=K, V=V, Rmax=Rmax, ms=ms,
+        res.append(dict(B=B, S=S, K=K, V=V, Rmax=Rmax, ms=ms, form=form,
+                        general_ms=general_ms,
                         plain_ms=plain_ms, bound_ms=bound_ms,
                         bound_by=bound_by, chain_ms=chain_ms,
                         chain_cycles_per_step=cycles))
@@ -1023,11 +1129,13 @@ def check_chain(rng, dev, sm_ghz):
                max_abs_err=0.0, ms=r0["ms"], plain_ms=r0["plain_ms"],
                bound_ms=r0["bound_ms"], bound_by=r0["bound_by"],
                library_ms=None, chain_ms=r0["chain_ms"],
+               general_form_ms=r0["general_ms"],
                k_call_ms=call_s * 1e3, k_call_steps=CHAIN_K_STEPS,
                shape=dict(B=B, S=S, K=K, V=V, Rmax=Rmax))
     for r in res[1:]:
         row[f"at_B{r['B']}_S{r['S']}_K{r['K']}_V{r['V']}"] = {
-            k: r[k] for k in ("ms", "plain_ms", "bound_ms", "chain_ms")}
+            k: r[k] for k in ("ms", "form", "general_ms", "plain_ms",
+                              "bound_ms", "chain_ms")}
     return row
 
 
@@ -1651,6 +1759,7 @@ def main() -> int:
     if hasattr(sls, "functions"):
         spills += sass_report("edit_dp", (("edit_dp_warp", "SHFL.UP"),
                                           ("edit_tb_kernel", "SHFL.IDX")))
+        spills += sass_report("mcmc_chain", (("mcmc_chain", "SHFL.DOWN"),))
     sm_ghz = sm_clock_ghz()
     log(f"highest SM clock {sm_ghz:.3f} GHz")
     rng = np.random.default_rng(SEED)

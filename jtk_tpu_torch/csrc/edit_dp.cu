@@ -43,18 +43,32 @@
 // - A thread's four int16 cells go out as one 8-byte store.
 // - The loop stops at the pair's q_len: rows past it are not written (the
 //   walk never reads them); `last` is the state at row q_len.
-// Block form, W > 2048 (a consensus tile over ~14 kb; never on the mapper):
-// one block per pair, 4 or 8 lanes a thread, block-wide scans.
+// Block form, W 2049..8192 (a consensus tile over ~14 kb; never on the
+// mapper): one block per pair, 4 or 8 lanes a thread, block-wide scans.
+// Scratch form, W above 8192 (a tile over ~60 kb): the block form's row at
+// any width, its state in shared memory or a per-pair scratch
+// (edit_dp_scratch), and int32 cells, since a left run may pass 8191 lanes
+// there and ptr | run << 2 would not fit an int16.
 //
-// The walk (edit_tb_kernel): one warp per pair.  A pair's walk is serial
-// (row i's cell depends on the column the walk reached), so only two
-// dependent reads may sit on its chain: the warp copies the stream rows
-// the walk will need next, 15 rows ahead (7 above 4096 lanes), into a
-// shared-memory ring with cp.async (the row is known, i falls by one a
-// step; the column is not, so whole rows), and every lane walks the same
-// cells out of the ring.  The band offsets come a 32-step tile ahead, one
-// shuffle a step; dels and ops go out a 32-step tile at a time.
+// The walk (edit_tb_kernel): one pair a block of two warps.  A pair's walk
+// is serial (row i's cell depends on the column the walk reached), so
+// only dependent shared reads may sit on its chain.  The row is known a
+// step ahead (i falls by one a step), the column is not, so whole rows
+// (or, with many pairs, windows of them) are copied ahead: the second
+// warp keeps a ring of 16-row groups in flight in shared memory (TMA bulk
+// copies from one lane, or cp.async from all 32 where many pairs share an
+// SM), each group completing on its "full" mbarrier; the walking warp
+// waits on that barrier by phase once a group, walks the group's steps,
+// and releases it on its "empty" mbarrier.  The ring is as deep as the
+// block's share of the SM's shared memory when all pairs are resident at
+// once (~13 groups of W 512 rows for one pair, 3 groups of 128-cell
+// windows at the mapper's 2048 pairs of W 256, whose walk is held by the
+// bytes it copies).  A step is then one shared load and the integer
+// update (a second load where the cell ends a left run).  The band
+// offsets come a 32-step tile ahead, one shuffle a step; dels and ops go
+// out a 32-step tile at a time.
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -445,6 +459,124 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) edit_dp_block(EDIT_ARGS) {
 
 #define EDIT_BLOCK_LANES(X) X(4) X(8)
 
+// The scratch form, W above 8192 (int32 cells, STREAM_INT16_W): one block
+// of MAX_THREADS threads a pair, C = ceil(W / MAX_THREADS) consecutive
+// lanes a thread, whatever W.  A row is three passes over the thread's
+// lanes around the block form's two block scans: the candidates (kept in
+// the state with their diag flags), the new e, the cells.  The state, e
+// and the band chars of two rows (the row read and the row written), the
+// candidates and the flags, 15 bytes a lane (edit_state_bytes, W padded to
+// C x MAX_THREADS lanes, a thread's lane l at l x MAX_THREADS + t so that a
+// warp touches consecutive words), lies in shared memory where it fits
+// (EDIT_SMEM_STATE, ~13 600 lanes), else in a per-pair scratch in device
+// memory (L2-resident).
+__host__ __device__ constexpr size_t edit_state_bytes(int W) {
+  return ((size_t)(W + MAX_THREADS - 1) / MAX_THREADS * MAX_THREADS * 15 +
+          15) / 16 * 16;
+}
+constexpr int EDIT_SMEM_STATE = 204800;   // 200 KB
+constexpr int STREAM_INT16_W = 8192;   // ptr | run << 2 fits an int16
+
+__global__ void __launch_bounds__(MAX_THREADS, 1)
+edit_dp_scratch(const int32_t* __restrict__ e0, const int32_t* __restrict__ qs,
+                const int32_t* __restrict__ shifts,
+                const int32_t* __restrict__ inc,
+                const int32_t* __restrict__ rc0,
+                const int32_t* __restrict__ j0,
+                const int32_t* __restrict__ qlen,
+                const int32_t* __restrict__ tlen, int32_t* __restrict__ out,
+                int32_t* __restrict__ last, int B, int Q, int W,
+                unsigned char* __restrict__ scratch) {
+  extern __shared__ __align__(16) unsigned char state_smem[];
+  __shared__ int tmp[32];       // the block scans' warp totals
+  const int b = blockIdx.x;
+  const int t = threadIdx.x, NT = blockDim.x;
+  const int C = (W + NT - 1) / NT;            // lanes a thread
+  const int k0 = t * C, n = max(0, min(C, W - k0));
+  const size_t L = (size_t)C * NT;            // lanes a state row holds
+  // lane k0 + l at l NT + t; lanes k0 + l +- 1
+  auto at = [&](int l) { return l * NT + t; };
+  auto next = [&](int l) { return l + 1 < C ? (l + 1) * NT + t : t + 1; };
+  auto prev = [&](int l) {
+    return l > 0 ? (l - 1) * NT + t : (C - 1) * NT + t - 1;
+  };
+  unsigned char* base = scratch == nullptr
+                            ? state_smem
+                            : scratch + (size_t)b * edit_state_bytes(W);
+  int* E = reinterpret_cast<int*>(base);          // [2][L] e of two rows
+  int* CAND = E + 2 * L;                          // [L] candidates
+  int8_t* RC = reinterpret_cast<int8_t*>(CAND + L);   // [2][L] band chars
+  int8_t* DG = RC + 2 * L;                        // [L] cand == diag
+  const size_t row_base = (size_t)b * W;
+  for (int l = 0; l < n; ++l) {
+    E[at(l)] = e0[row_base + k0 + l];
+    RC[at(l)] = (int8_t)rc0[row_base + k0 + l];
+  }
+  int jb = j0[row_base];   // lane k sits at column jb + k (unit-step rows)
+  const int ql = min(max(qlen[b], 0), Q);
+  const int tl = tlen[b];
+  const int32_t* qrow = qs + (size_t)b * Q;
+  const int32_t* srow = shifts + (size_t)b * Q;
+  const int32_t* irow = inc + (size_t)b * Q;
+  __syncthreads();
+  for (int i = 1; i <= ql; ++i) {
+    const int p = (i - 1) & 1;
+    const int* cE = E + p * L;
+    int* nE = E + (p ^ 1) * L;
+    const int8_t* cR = RC + p * L;
+    int8_t* nR = RC + (p ^ 1) * L;
+    const int qc = qrow[i - 1];
+    const int sv = srow[i - 1];
+    const int newc = irow[i - 1];
+    const bool one = sv == 1;
+    const int lim = min(tl - jb - sv, W - 1);   // column <= t_len
+    const int lo = 1 - jb - sv;                 // column >= 1
+    int run_min = MIN_ID;   // in-thread prefix min of cand[k] - k
+    for (int l = 0; l < n; ++l) {
+      const int k = k0 + l, a = at(l);
+      const int ek = cE[a];
+      const int e_next = k + 1 < W ? cE[next(l)] : EDIT_INF;
+      const int e_prev = k > 0 ? cE[prev(l)] : EDIT_INF;
+      const int rc_next = k + 1 < W ? cR[next(l)] : newc;
+      const int rc_n = one ? rc_next : cR[a];
+      const bool ok = k <= lim;
+      const int diag = (ok && k >= lo) ? (one ? ek : e_prev) + (rc_n != qc)
+                                       : EDIT_INF;
+      const int up = ok ? (one ? e_next : ek) + 1 : EDIT_INF;
+      const int cand = min(diag, up);
+      CAND[a] = cand;
+      DG[a] = cand == diag;
+      nR[a] = (int8_t)rc_n;
+      run_min = min(run_min, cand - k);
+    }
+    int ex;
+    block_scan<true>(run_min, tmp, ex);
+    int run_max = MAX_ID;   // in-thread prefix max of the last non-LEFT lane
+    for (int l = 0; l < n; ++l) {
+      const int k = k0 + l, a = at(l);
+      const int cand = CAND[a];
+      ex = min(ex, cand - k);
+      const int er = k <= lim ? min(cand, ex + k) : EDIT_INF;
+      if (er == cand) run_max = k;   // diag or up: not LEFT
+      nE[a] = er;
+    }
+    int nl;
+    block_scan<false>(run_max, tmp, nl);
+    int32_t* o = out + ((size_t)(i - 1) * B + b) * W + k0;
+    for (int l = 0; l < n; ++l) {
+      // diag wins ties over up over left; e < cand only by a left run
+      const int k = k0 + l, a = at(l);
+      const int cand = CAND[a];
+      const int ptr = nE[a] == cand ? (DG[a] ? 0 : 1) : 2;
+      if (ptr != 2) nl = k;
+      o[l] = ptr | (ptr == 2 ? (k - nl) << 2 : 0);
+    }
+    jb += sv;
+  }
+  const int* fE = E + (ql & 1) * L;
+  for (int l = 0; l < n; ++l) last[row_base + k0 + l] = fE[at(l)];
+}
+
 #define WARP_CASE(L_, WPP_)                                                 \
   if (lanes == L_ && warps == WPP_) {                                       \
     edit_dp_warp<L_, WPP_><<<grid, block, shmem, s>>>(EDIT_PASS, ppb);      \
@@ -459,19 +591,40 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) edit_dp_block(EDIT_ARGS) {
 
 // Returns 0, a CUDA error code, or GEOMETRY_ERROR for a geometry the
 // library was not built for or that does not cover W.  ``warps`` <=
-// MAX_WARPS selects the warp form (``ppb`` pairs a block), more the block
-// form (one pair a block, ``ppb`` 1).
+// MAX_WARPS selects the warp form (``ppb`` pairs a block); more, the block
+// form (one pair a block, ``ppb`` 1) at 4 or 8 lanes, the scratch form
+// above 8 (W above STREAM_INT16_W; ``out`` then holds int32 cells, and
+// ``scratch`` edit_state_bytes(W) bytes a pair where the state does not
+// fit EDIT_SMEM_STATE, else null).  ``out`` holds int16 cells up to
+// STREAM_INT16_W.
 extern "C" int edit_dp_launch(const int32_t* e0, const int32_t* qs,
                               const int32_t* shifts, const int32_t* inc,
                               const int32_t* rc0, const int32_t* j0,
                               const int32_t* qlen, const int32_t* tlen,
-                              int16_t* out, int32_t* last, int B, int Q, int W,
-                              int lanes, int warps, int ppb, void* stream) {
+                              void* out_cells, int32_t* last, int B, int Q,
+                              int W, int lanes, int warps, int ppb,
+                              unsigned char* scratch, void* stream) {
   if (B == 0) return 0;
   if (W < 1 || Q < 1 || lanes < 1 || warps < 1 || ppb < 1 ||
       lanes * 32 * warps < W)
     return GEOMETRY_ERROR;
   cudaStream_t s = (cudaStream_t)stream;
+  if (W > STREAM_INT16_W) {
+    const bool in_smem = edit_state_bytes(W) <= EDIT_SMEM_STATE;
+    if (warps != MAX_THREADS / 32 || ppb != 1 ||
+        lanes != (W + MAX_THREADS - 1) / MAX_THREADS ||
+        in_smem != (scratch == nullptr))
+      return GEOMETRY_ERROR;
+    const int shmem = in_smem ? (int)edit_state_bytes(W) : 0;
+    if (shmem > 48 * 1024)
+      cudaFuncSetAttribute(edit_dp_scratch,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, shmem);
+    edit_dp_scratch<<<B, MAX_THREADS, shmem, s>>>(
+        e0, qs, shifts, inc, rc0, j0, qlen, tlen,
+        static_cast<int32_t*>(out_cells), last, B, Q, W, scratch);
+    return (int)cudaGetLastError();
+  }
+  int16_t* out = static_cast<int16_t*>(out_cells);
   bool known = false;
   if (warps <= MAX_WARPS) {
     if (ppb * warps > block_warps(warps)) return GEOMETRY_ERROR;
@@ -492,111 +645,299 @@ extern "C" int edit_dp_launch(const int32_t* e0, const int32_t* qs,
 // The walk
 // ---------------------------------------------------------------------------
 
-// 16-byte asynchronous copy global -> shared of the first ``bytes`` (0 to
-// 16) bytes, the rest zero-filled; the source address must be valid.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(gmem), "r"(bytes)
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
                : "memory");
 }
 
-template <int N>
-__device__ __forceinline__ void wait_groups() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
 }
 
-// Ring depth (stream rows in flight) by band width: 16 rows up to 4096
-// lanes, 8 above (a ring row of 8192 lanes is 16 KB).
-constexpr int TB_DEPTH_WIDE = 4096;
-// Shared memory the warps of one walk block may take together.
-constexpr int TB_BLOCK_BYTES = 160 * 1024;
-constexpr int TB_MAX_PAIRS = 4;
+// arrive and expect ``bytes`` of asynchronous copies on the barrier
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
 
-// int16 cells of one ring row: the row's W cells from a 16-byte aligned
-// start, up to 7 cells before it.
-__host__ __device__ constexpr int ring_row(int W) { return (W + 7 + 7) / 8 * 8; }
+// wait until the barrier's phase of parity ``parity`` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned a = smem_u32(bar);
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
 
-// ALIGNED: W a multiple of 8, so every stream row starts 16-byte aligned
-// and is copied as W / 8 whole chunks; otherwise from the aligned cell at
-// or before its start, zero-filled past the stream's end.  Step t reads
-// ring slot t mod D; the copy for step t + D - 1 goes into the slot step
-// t - 1 read, which every lane has left once it passes step t's
-// __syncwarp.
-template <int D, bool ALIGNED>
-__global__ void __launch_bounds__(32 * TB_MAX_PAIRS)
-edit_tb_kernel(const int16_t* __restrict__ packed,
+// bulk copy (TMA) of ``bytes`` (a multiple of 16, both addresses 16-byte
+// aligned) global -> shared, completing on ``bar``
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// the barrier's phase of parity ``parity`` has completed (no wait)
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Walk block shape: warp 0 walks, lane 0 of warp 1 produces.
+constexpr int TB_THREADS = 64;
+// Shared memory a walk block may take, and an SM holds (H100).
+constexpr int TB_BLOCK_SMEM = 227 * 1024;
+constexpr int TB_SM_SMEM = 228 * 1024;
+constexpr int TB_GROUP = 16;         // rows a pair of barriers covers
+constexpr int TB_WINDOW = 128;       // cells a slot holds in window mode
+constexpr int TB_MAX_GROUPS = 128;
+
+// Bytes of a ring slot: a stream row of W cells from the 16-byte aligned
+// address at or before its start (up to 15 bytes before it).
+__host__ __device__ constexpr size_t tb_slot_bytes(int W, int cell) {
+  return ((size_t)W * cell + 15 + 15) / 16 * 16;
+}
+
+// 16-byte asynchronous copy global -> shared (cp.async, the LSU path)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// the barrier tracks the completion of this thread's earlier cp.asyncs,
+// as one of its expected arrivals
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// One pair a block.  With NG > 0 stream rows come through a ring of NG
+// groups of G slots in shared memory, filled by warp 1 (the producer):
+// the rows of step group u (steps u G .. u G + G - 1, rows q_len - 1 - t)
+// go into group u mod NG, all completing on the group's "full" barrier,
+// once the walking warp has arrived on the group's "empty" barrier for
+// the rows that held it before (the producer polls it with a back-off,
+// so its waiting takes no issue slots from the walk).  With ``bulk`` one
+// elected lane copies each row with one TMA bulk copy; else (narrow rows
+// or windows and many pairs an SM, where TMA's cost a request would bound
+// the copies) the warp's lanes copy 16 bytes each with cp.async, every
+// lane arriving on the barrier when its copies land.  Each copy reads the
+// row's aligned superset (the wrapper pads the stream's allocation by 16
+// bytes).
+//
+// With WINDOW (many pairs and rows wider than two windows: the mapper)
+// a slot holds ``win`` cells of its row from w0 on, w0 centred on the
+// column the walk had when it left the group that held the slot before
+// (the walk drifts a few lanes a step: a deletion run moves it by its
+// length); a cell outside the window is read from device memory, so the
+// window changes no bit.  Both sides compute w0 from that column, which
+// the walking warp leaves in ``kpub`` before it arrives on the empty
+// barrier; the first NG groups centre on the walk's first column.
+//
+// The walking warp waits on the full barrier by phase once a group, takes
+// the group's G offsets by shuffle, walks its G steps (unrolled), and
+// arrives on the empty barrier when it leaves the group.  A step is one
+// shared load and the integer update, and a second load only where the
+// cell ends a left run (the run's first cell says whether it was entered
+// by a diagonal; where there is no run that cell is the one read).  G is
+// TB_GROUP, or 1 for rows too wide for two groups of TB_GROUP; with NG 0
+// (a row wider than a quarter of a block's shared memory) the walking
+// warp reads its cells from device memory.
+template <typename Cell, int G, bool WINDOW>
+__global__ void __launch_bounds__(TB_THREADS)
+edit_tb_kernel(const Cell* __restrict__ packed,
                const int64_t* __restrict__ off,
                const int32_t* __restrict__ qlen,
                const int64_t* __restrict__ endj, int32_t* __restrict__ dels,
                uint8_t* __restrict__ ops, int64_t* __restrict__ start, int B,
-               int Q, int W, int ppb) {
-  extern __shared__ int4 smem4[];
+               int Q, int W, int NG, int slot_bytes, int bulk, int win) {
+  // cells are never negative: read them unsigned (no sign extension)
+  using U = typename std::make_unsigned<Cell>::type;
+  extern __shared__ __align__(128) unsigned char tb_smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(tb_smem);   // [NG]
+  uint64_t* empty = full + NG;                             // [NG]
+  int* kpub = reinterpret_cast<int*>(empty + NG);          // [NG]
+  unsigned char* ring =                                    // [NG * G][slot]
+      tb_smem + 16 * (size_t)NG + ((size_t)NG * 4 + 15) / 16 * 16;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.x * ppb + warp;
-  if (b >= B) return;
-  const int rs = ring_row(W);
-  int16_t* ring = reinterpret_cast<int16_t*>(smem4) + (size_t)warp * D * rs;
+  const int b = blockIdx.x;
   const int ql = min(max(qlen[b], 0), Q);
+  const size_t pitch = (size_t)B * W * sizeof(Cell);   // bytes a row
+  const size_t row_bytes = (size_t)W * sizeof(Cell);
   const int64_t* ob = off + (size_t)b * (Q + 1);
-  const size_t total = (size_t)Q * B * W;   // stream cells
-  const size_t pitch = (size_t)B * W;       // cells from one row to the next
-  // stream row r of this pair into ring slot ``slot``
-  auto fetch = [&](int r, int slot) {
-    if (r >= 0) {
-      int16_t* dst = ring + slot * rs;
-      const size_t c0 = r * pitch + (size_t)b * W;
-      if constexpr (ALIGNED) {
-        const int16_t* srcp = packed + c0;
-        for (int c = lane; c < (W >> 3); c += 32)
-          cp_async16(dst + c * 8, srcp + c * 8, 16);
-      } else {
-        const size_t a0 = c0 & ~(size_t)7;
-        const int n = (int)((c0 - a0 + W + 7) >> 3);
-        for (int c = lane; c < n; c += 32) {
-          const size_t cell = a0 + (size_t)c * 8;
-          const int bytes = cell >= total ? 0
-                            : (int)min((size_t)16, (total - cell) * 2);
-          cp_async16(dst + c * 8, packed + (bytes ? cell : 0), bytes);
-        }
-      }
-    }
-    commit_group();
+  const int k_init = min(max((int)(endj[b] - ob[ql]), 0), W - 1);
+  // byte offset of step t's row in the stream
+  auto row_byte = [&](int t) {
+    return (size_t)(ql - 1 - t) * pitch + (size_t)b * row_bytes;
   };
+  // the first window cell of the group u in ring group g
+  auto window0 = [&](int u, int g) {
+    if constexpr (!WINDOW) return 0;
+    const int kr = u < NG ? k_init : kpub[g];
+    return min(max(kr - win / 2, 0), W - win);
+  };
+  const size_t copy_bytes = WINDOW ? (size_t)win * sizeof(Cell) : row_bytes;
+  if (NG > 0) {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < NG; ++s) {
+        mbar_init(full + s, bulk ? 1 : 32);
+        mbar_init(empty + s, 1);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
+  if (warp == 1) {   // the producer
+    if (NG == 0 || (bulk && lane != 0)) return;
+    const unsigned char* src = reinterpret_cast<const unsigned char*>(packed);
+    int g = 0;
+    unsigned phase = 0;
+    for (int t0 = 0; t0 < ql; t0 += G) {
+      const int rows = min(G, ql - t0);
+      while (!mbar_test(empty + g, phase ^ 1)) __nanosleep(128);
+      const size_t w0 = (size_t)window0(t0 / G, g) * sizeof(Cell);
+      unsigned char* dst = ring + (size_t)g * G * slot_bytes;
+      // row r's copy: its aligned superset from a0, n bytes
+      auto span = [&](int r, size_t& a0) {
+        const size_t c0 = row_byte(t0 + r) + w0;
+        a0 = c0 & ~(size_t)15;
+        return (unsigned)(((c0 + copy_bytes + 15) & ~(size_t)15) - a0);
+      };
+      size_t a0;
+      if (bulk) {
+        unsigned total = 0;
+        for (int r = 0; r < rows; ++r) total += span(r, a0);
+        mbar_expect_tx(full + g, total);
+        for (int r = 0; r < rows; ++r) {
+          const unsigned n = span(r, a0);
+          bulk_copy(dst + (size_t)r * slot_bytes, src + a0, n, full + g);
+        }
+      } else {
+        for (int r = 0; r < rows; ++r) {
+          const int n = (int)span(r, a0) >> 4;
+          for (int c = lane; c < n; c += 32)
+            cp_async16(dst + (size_t)r * slot_bytes + 16 * c,
+                       src + a0 + 16 * (size_t)c);
+        }
+        cp_async_arrive(full + g);
+      }
+      if (++g == NG) { g = 0; phase ^= 1; }
+    }
+    return;
+  }
   // lane s of a tile holds the offset of step 32 * tile + s's row
   auto off_at = [&](int t) {
     const int i = ql - t;
     return i >= 1 ? (int)ob[i] : 0;
   };
-  for (int s = 0; s < D - 1; ++s) fetch(ql - 1 - s, s);
   int offc = off_at(lane), offn = off_at(32 + lane);
   int j = (int)endj[b];
+  int k = k_init;       // the column of the last step
   int dv = 0, ov = 0;   // this lane's step of the current 32-step tile
   int32_t* db = dels + (size_t)b * Q;
   uint8_t* opb = ops + (size_t)b * Q;
-  for (int t = 0; t < ql; ++t) {
-    const int row = ql - 1 - t;
-    const int sl = t & 31;
-    const int off_i = __shfl_sync(FULL_MASK, offc, sl);
-    wait_groups<D - 2>();   // this row's copies, from every lane
-    __syncwarp();
-    const int16_t* rr = ring + (t % D) * rs;
-    if constexpr (!ALIGNED) rr += (int)((row * pitch + (size_t)b * W) & 7);
-    const int k = min(max(j - off_i, 0), W - 1);
-    const int cell = rr[k];
-    // the copies go out while the cell is read (they write another slot)
-    fetch(row - (D - 1), (t + D - 1) % D);
+  const unsigned char* gsrc = reinterpret_cast<const unsigned char*>(packed);
+  // step t's cell at column c: from its row ``rr`` (with WINDOW, the
+  // window's cells w0 .. w0 + win - 1 of it, the rest from device memory)
+  auto cell_at = [&](const U* rr, int t, int w0, int c) -> int {
+    if constexpr (WINDOW) {
+      if ((unsigned)(c - w0) >= (unsigned)win)
+        return reinterpret_cast<const U*>(gsrc + row_byte(t))[c];
+    }
+    return rr[c];
+  };
+  // step t of the walk on row ``rr``, band offset ``off_i``
+  auto step = [&](const U* rr, int w0, int off_i, int t) {
+    k = min(max(j - off_i, 0), W - 1);
+    const int cell = cell_at(rr, t, w0, k);
     const int run = cell >> 2;
-    const int k2 = min(max(k - run, 0), W - 1);
-    const int diag = (rr[k2] & 3) == 0;
+    int diag = (cell & 3) == 0;   // no run: k's own cell
+    if (run != 0) {
+      const int k2 = min(max(k - run, 0), W - 1);
+      diag = (cell_at(rr, t, w0, k2) & 3) == 0;
+    }
     j -= run + diag;
-    if (lane == sl) { dv = run; ov = diag ? 1 : 2; }
-    if (sl == 31) {
+    if (lane == (t & 31)) { dv = run; ov = diag ? 1 : 2; }
+  };
+  // after step t: a whole 32-step tile goes out, the next tile's offsets
+  auto tile_end = [&](int t) {
+    if ((t & 31) == 31) {
       db[t - 31 + lane] = dv;
       opb[t - 31 + lane] = (uint8_t)ov;
       offc = offn;
       offn = off_at(t + 33 + lane);
+    }
+  };
+  if (NG > 0) {
+    const unsigned pm = (unsigned)(pitch & 15);
+    const unsigned bm = (unsigned)((size_t)b * row_bytes) & 15;
+    int g = 0;
+    unsigned phase = 0;
+    for (int t0 = 0; t0 < ql; t0 += G) {
+      int offs[G];
+#pragma unroll
+      for (int r = 0; r < G; ++r)   // G divides 32: one tile
+        offs[r] = __shfl_sync(FULL_MASK, offc, (t0 + r) & 31);
+      const int w0 = window0(t0 / G, g);
+      const unsigned char* gb = ring + (size_t)g * G * slot_bytes;
+      // row r's cells: the slot from its copy's offset in a 16-byte block,
+      // indexed by column (the window's first column at w0)
+      auto row = [&](int r) {
+        const unsigned m =
+            ((unsigned)(ql - 1 - t0 - r) * pm + bm + w0 * sizeof(Cell)) & 15;
+        return reinterpret_cast<const U*>(gb + (size_t)r * slot_bytes + m) -
+               w0;
+      };
+      mbar_wait(full + g, phase);
+      if (t0 + G <= ql) {
+#pragma unroll
+        for (int r = 0; r < G; ++r) step(row(r), w0, offs[r], t0 + r);
+      } else {   // the last group (offsets by shuffle: offs stays in
+                 // registers)
+        for (int r = 0; r < ql - t0; ++r)
+          step(row(r), w0, __shfl_sync(FULL_MASK, offc, (t0 + r) & 31),
+               t0 + r);
+      }
+      if (WINDOW && lane == 0) kpub[g] = k;
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + g);
+      if (++g == NG) { g = 0; phase ^= 1; }
+      if (t0 + G <= ql) tile_end(t0 + G - 1);
+    }
+  } else {
+    for (int t = 0; t < ql; ++t) {   // WINDOW is false here
+      step(reinterpret_cast<const U*>(gsrc + row_byte(t)), 0,
+           __shfl_sync(FULL_MASK, offc, t & 31), t);
+      tile_end(t);
     }
   }
   // the last partial tile, then zeros for the steps past q_len
@@ -606,35 +947,72 @@ edit_tb_kernel(const int16_t* __restrict__ packed,
     opb[t] = rec ? (uint8_t)ov : 0;
   }
   if (lane == 0) start[b] = j;
-  wait_groups<0>();
 }
 
-#define TB_LAUNCH(D_, AL_)                                                  \
-  cudaFuncSetAttribute(edit_tb_kernel<D_, AL_>,                             \
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,         \
-                       (int)shmem);                                         \
-  edit_tb_kernel<D_, AL_><<<grid, block, shmem, s>>>(                       \
-      packed, off, qlen, endj, dels, ops, start, B, Q, W, ppb);
+// The walk's ring: G rows a group (TB_GROUP, or 1 for rows too wide for
+// two groups of TB_GROUP in a block) and as many groups as the block's
+// share of an SM's shared memory holds when all B pairs are resident
+// together (B over the SMs' count, at most 32 blocks an SM), at least 2
+// (fewer pairs are then resident at once) and no more than the steps
+// need; NG 0 (direct loads) where two slots do not fit a block.  With 4
+// or more pairs an SM the copies go by cp.async, not TMA (``bulk`` 0), and
+// rows wider than two windows by windows of TB_WINDOW cells (``win``).
+void tb_ring(int B, int Q, int W, int cell, int& NG, int& G, int& bulk,
+             int& win) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 1;
+  }
+  const int per_sm = min(32, (B + sms - 1) / sms);
+  bulk = per_sm < 4;
+  win = !bulk && W >= 2 * TB_WINDOW ? TB_WINDOW : 0;
+  const size_t slot = tb_slot_bytes(win ? win : W, cell);
+  const size_t budget =
+      min((size_t)TB_BLOCK_SMEM, (size_t)TB_SM_SMEM / per_sm - 1024);
+  G = 2 * (TB_GROUP * slot + 32) <= (size_t)TB_BLOCK_SMEM ? TB_GROUP : 1;
+  const int need = (Q + G - 1) / G;
+  NG = (int)min(max(budget / (G * slot + 32), (size_t)2),
+                (size_t)min(max(need, 2), TB_MAX_GROUPS));
+  if (2 * (G * slot + 32) > (size_t)TB_BLOCK_SMEM) NG = 0;
+}
 
-// Returns 0, a CUDA error code, or GEOMETRY_ERROR.
-extern "C" int edit_tb_launch(const int16_t* packed, const int64_t* off,
+// ``packed`` holds int16 cells up to STREAM_INT16_W lanes, int32 above,
+// 16-byte aligned with 16 bytes of allocation past its end (the wrapper
+// checks both).  Returns 0, a CUDA error code, or GEOMETRY_ERROR.
+extern "C" int edit_tb_launch(const void* packed, const int64_t* off,
                               const int32_t* qlen, const int64_t* endj,
                               int32_t* dels, uint8_t* ops, int64_t* start,
                               int B, int Q, int W, void* stream) {
   if (B == 0) return 0;
   if (W < 1 || Q < 1) return GEOMETRY_ERROR;
-  const int D = W <= TB_DEPTH_WIDE ? 16 : 8;
-  const size_t warp_bytes = (size_t)D * ring_row(W) * sizeof(int16_t);
-  const int ppb = (int)max((size_t)1, min((size_t)TB_MAX_PAIRS,
-                                          TB_BLOCK_BYTES / warp_bytes));
-  const size_t shmem = ppb * warp_bytes;
-  const dim3 grid((B + ppb - 1) / ppb), block(32 * ppb);
   cudaStream_t s = (cudaStream_t)stream;
-  // the stream's base is 16-byte aligned (the wrapper checks it)
-  if (D == 16) {
-    if ((W & 7) == 0) { TB_LAUNCH(16, true) } else { TB_LAUNCH(16, false) }
-  } else {
-    if ((W & 7) == 0) { TB_LAUNCH(8, true) } else { TB_LAUNCH(8, false) }
+  const int cell = W > STREAM_INT16_W ? 4 : 2;
+  int NG, G, bulk, win;
+  tb_ring(B, Q, W, cell, NG, G, bulk, win);
+  const int slot = (int)tb_slot_bytes(win ? win : W, cell);
+  const size_t shmem =
+      (size_t)NG * (16 + (size_t)G * slot) + ((size_t)NG * 4 + 15) / 16 * 16;
+#define TB_CASE(CELL_, G_, WIN_)                                            \
+  if (cell == (int)sizeof(CELL_) && G == G_ && (win > 0) == WIN_) {         \
+    if (shmem > 48 * 1024)                                                  \
+      cudaFuncSetAttribute(edit_tb_kernel<CELL_, G_, WIN_>,                 \
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,     \
+                           (int)shmem);                                     \
+    edit_tb_kernel<CELL_, G_, WIN_><<<B, TB_THREADS, shmem, s>>>(           \
+        static_cast<const CELL_*>(packed), off, qlen, endj, dels, ops, start, \
+        B, Q, W, NG, slot, bulk, win);                                      \
   }
+  TB_CASE(int16_t, TB_GROUP, false)
+  TB_CASE(int16_t, TB_GROUP, true)
+  TB_CASE(int16_t, 1, false)
+  TB_CASE(int16_t, 1, true)
+  TB_CASE(int32_t, TB_GROUP, false)
+  TB_CASE(int32_t, TB_GROUP, true)
+  TB_CASE(int32_t, 1, false)
+  TB_CASE(int32_t, 1, true)
+#undef TB_CASE
   return (int)cudaGetLastError();
 }

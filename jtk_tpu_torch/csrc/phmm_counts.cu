@@ -61,7 +61,6 @@ constexpr int NC = 45;
 constexpr int CHUNK = 128;   // band lanes of a unit: 32 threads x 4
 constexpr int STRIP = 16;    // rows of a unit (<= 32: one lane a row)
 constexpr int WARPS = 4;     // units a block
-constexpr int MAX_W = 4096;
 constexpr int GEOMETRY_ERROR = -2;
 constexpr double HALF_CAP = 700.0;   // e^700 < double's largest, 1.8e308
 
@@ -304,7 +303,7 @@ extern "C" int phmm_counts_launch(
   if (B == 0) return 0;
   const int strips = (Q + 1 + STRIP - 1) / STRIP;
   const int chunks = (W + CHUNK - 1) / CHUNK;
-  if (W < 1 || W > MAX_W || units != strips * chunks || (vec && W % 4))
+  if (W < 1 || units != strips * chunks || (vec && W % 4))
     return GEOMETRY_ERROR;
   cudaStream_t s = (cudaStream_t)stream;
   const int grid = (B * units + WARPS - 1) / WARPS;

@@ -39,15 +39,20 @@
 //   thread, 8 warps a pair, the row's state (M, I, D, column, char of
 //   each lane) in shared memory (wb::Lanes), the row's temporaries in
 //   registers.
+// - Above 4096 lanes, the scratch form of the tables kernel
+//   (band_scratch.cuh): one block of 512 threads a pair, ceil(W / 512)
+//   lanes a thread, two rows of the state in a per-pair scratch in device
+//   memory, the log scales summed in double.
 #include <cstdint>
 
+#include "band_scratch.cuh"
 #include "warp_band.cuh"
 
 // Per warp of a block: [0] scan total, [1] final mass partial, [2] scale
 // partial, [3..6] first lane's values, [7..9] last lane's values.
 constexpr int SM_SLOTS = 12;
 constexpr int GEOMETRY_ERROR = -2;
-constexpr int MAX_W = 4096;
+constexpr int SHARED_FORM_W = 4096;   // above, the scratch form
 constexpr int MAX_REG_LANES = 4;   // above, the row state is in shared memory
 
 // Dynamic shared memory of a block: the wide form's row state, three
@@ -325,6 +330,74 @@ phmm_lk_kernel(const float* __restrict__ emis,
   }
 }
 
+// The scratch form (W above SHARED_FORM_W): one block a pair, the state in
+// ``scratch`` (bs::pair_bytes<float>(W) bytes a pair).  Row 0 (M at
+// column 0, the Del chain along the row), then each row from the one
+// before (scaled), as fwd_tables_scratch without the stores.
+__global__ void __launch_bounds__(bs::SCRATCH_THREADS)
+phmm_lk_scratch(const float* __restrict__ emis,
+                const int32_t* __restrict__ shifts,
+                const int32_t* __restrict__ inc,
+                const int32_t* __restrict__ rc0,
+                const int32_t* __restrict__ j0,
+                const int32_t* __restrict__ qlen,
+                const int32_t* __restrict__ tlen,
+                const float* __restrict__ trans, float* __restrict__ out,
+                int B, int Q, int W, unsigned char* __restrict__ scratch) {
+  __shared__ float tmp[32];
+  const int b = blockIdx.x;
+  const bs::Span sp(W);
+  const bs::Trans tr = bs::load_trans(trans);
+  const int ql = min(max(qlen[b], 0), Q);
+  const int tl = tlen[b];
+  const size_t wbase = (size_t)b * W + sp.k0;
+  const bs::Rows<float> st(scratch + (size_t)b * bs::pair_bytes<float>(W),
+                           W);
+  int jb = j0[(size_t)b * W];   // lane k sits at column jb + k
+  float z = 0.f;
+  for (int l = 0; l < sp.n; ++l) {
+    const int a = sp.at(l);
+    const float m = jb + sp.k0 + l == 0 ? 1.f : 0.f;
+    st.M(0)[a] = m;
+    st.I(0)[a] = 0.f;
+    st.R(0)[a] = rc0[wbase + l];
+    z = fmaf(tr.dd, z, tr.md * m);
+  }
+  float sc = bs::fwd_pass2(st, sp, 0, tr.md, tr.id, tr.dd, z, jb, tl, tmp);
+  double logs = 0.0;
+  const float* em = emis + (size_t)b * 5 * Q;
+  for (int r = 0;; ++r) {
+    // scale row r (in buffer r & 1) by its sum
+    const int p = r & 1, q = p ^ 1;
+    logs += (double)logf(sc);
+    const float inv = wb::rcp_approx(sc);
+    float *M = st.M(p), *I = st.I(p), *D = st.D(p);
+    for (int l = 0; l < sp.n; ++l) {
+      const int a = sp.at(l);
+      M[a] *= inv; I[a] *= inv; D[a] *= inv;
+    }
+    __syncthreads();
+    if (r == ql) break;
+    const int sv = shifts[(size_t)b * Q + r];
+    const int jn0 = jb + sv;
+    const float zr = bs::fwd_pass1(st, sp, W, p, q, tr, em, Q, r, sv,
+                                   inc[(size_t)b * Q + r],
+                                   em[4 * (size_t)Q + r], jn0, tl);
+    sc = bs::fwd_pass2(st, sp, q, tr.md, tr.id, tr.dd, zr, jn0, tl, tmp);
+    jb = jn0;
+  }
+  // the last row's mass at column t_len
+  const int p = ql & 1;
+  float f = 0.f;
+  for (int l = 0; l < sp.n; ++l) {
+    const int a = sp.at(l);
+    if (jb + sp.k0 + l == tl) f += st.M(p)[a] + st.I(p)[a] + st.D(p)[a];
+  }
+  f = bs::block_reduce<float, false>(f, tmp);
+  if (threadIdx.x == 0)
+    out[b] = (float)((double)logf(f + 1e-30f) + logs);
+}
+
 // The geometries this library is built for: (lanes per thread, warps per
 // pair), those of ops/phmm_tables.py::tables_geometry.
 #define LK_GEOMETRIES(X) \
@@ -343,22 +416,35 @@ phmm_lk_kernel(const float* __restrict__ emis,
   }
 
 // Builds the emission streams into ``emis`` (B * 5 * Q floats, scratch the
-// caller allocates) and runs the forward pass.  Returns 0, a CUDA error
-// code, or GEOMETRY_ERROR for a geometry the library was not built for (or
-// that does not cover W).
+// caller allocates) and runs the forward pass.  Above SHARED_FORM_W the
+// scratch form: ``lanes`` = ceil(W / SCRATCH_THREADS), SCRATCH_WARPS warps,
+// one pair a block, ``scratch`` bs::pair_bytes<float>(W) bytes a pair.
+// Returns 0, a CUDA error code, or GEOMETRY_ERROR for a geometry the
+// library was not built for (or that does not cover W).
 extern "C" int phmm_lk_launch(const int32_t* qs, const int32_t* shifts,
                               const int32_t* inc, const int32_t* rc0,
                               const int32_t* j0, const int32_t* qlen,
                               const int32_t* tlen, const float* trans,
                               const float* me, const float* ie, float* emis,
                               float* out, int B, int Q, int W, int lanes,
-                              int warps, int ppb, void* stream) {
+                              int warps, int ppb, unsigned char* scratch,
+                              void* stream) {
   if (B == 0) return 0;
-  if (W < 1 || W > MAX_W || Q < 1 || ppb < 1 || lanes * 32 * warps < W ||
-      ppb * warps > block_warps(warps))
+  if (W < 1 || Q < 1 || ppb < 1 || lanes * 32 * warps < W)
+    return GEOMETRY_ERROR;
+  const bool scratch_form = W > SHARED_FORM_W;
+  if (scratch_form
+          ? warps != bs::SCRATCH_WARPS || ppb != 1 || scratch == nullptr ||
+                lanes != (W + bs::SCRATCH_THREADS - 1) / bs::SCRATCH_THREADS
+          : ppb * warps > block_warps(warps))
     return GEOMETRY_ERROR;
   cudaStream_t s = (cudaStream_t)stream;
   lk_emis_kernel<<<(B * Q + 255) / 256, 256, 0, s>>>(qs, me, ie, emis, B, Q);
+  if (scratch_form) {
+    phmm_lk_scratch<<<B, bs::SCRATCH_THREADS, 0, s>>>(
+        emis, shifts, inc, rc0, j0, qlen, tlen, trans, out, B, Q, W, scratch);
+    return (int)cudaGetLastError();
+  }
   const dim3 grid((B + ppb - 1) / ppb), block(ppb * warps * 32);
   bool known = false;
   LK_GEOMETRIES(LK_CASE)

@@ -51,6 +51,13 @@
 // instead of registers (wb::Lanes), so that no thread's state spills; the
 // row's temporaries stay in registers.
 //
+// The scratch form (W above 4096, both types; band_scratch.cuh): one block
+// of SCRATCH_THREADS threads a pair, ceil(W / 512) lanes a thread, two
+// rows of the state in a per-pair scratch in device memory, three passes
+// over a thread's lanes a row with block barriers between them.  Right at
+// any width, not fast: such bands occur only for a chunk template of more
+// than ~4.1 kb with a read ~4 kb shorter than it.
+//
 // Scalar type: float, or double for the gradient's tables
 // (ops/phmm_grad.py): a read that starts s bases late in its template
 // opens with a deletion run of weight ~tdd^(s-1) against the row's other
@@ -61,6 +68,7 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "band_scratch.cuh"
 #include "warp_band.cuh"
 
 // Per warp of a block: [0] scan total, [2] scale partial, [3..6] first
@@ -68,7 +76,7 @@
 // type).
 constexpr int SM_SLOTS = 12;
 constexpr int GEOMETRY_ERROR = -2;
-constexpr int MAX_W = 4096;
+constexpr int SHARED_FORM_W = 4096;   // above, the scratch form
 constexpr int MAX_REG_LANES = 4;   // above, the row state is in shared memory
 
 // Dynamic shared memory of a block: the wide form's row state, three
@@ -87,18 +95,8 @@ __host__ __device__ constexpr int block_warps(int wpp) {
 // every range test of theirs fails and their state stays 0.
 constexpr int NO_COLUMN = 1 << 30;
 
-struct Trans {
-  float mm, mi, md, im, ii, id, dm, di, dd;
-};
-
-__device__ __forceinline__ Trans load_trans(const float* t) {
-  // t is the padded (8, 8) table [from, to] with states M=0, I=1, D=2
-  Trans r;
-  r.mm = t[0]; r.mi = t[1]; r.md = t[2];
-  r.im = t[8]; r.ii = t[9]; r.id = t[10];
-  r.dm = t[16]; r.di = t[17]; r.dd = t[18];
-  return r;
-}
+using bs::Trans;
+using bs::load_trans;
 
 // The three output tables at one thread's first lane of one row.
 template <typename T>
@@ -596,6 +594,200 @@ bwd_tables_kernel(const float* __restrict__ emis,
   }
 }
 
+// The scratch form of the forward tables: one block a pair, the state in
+// ``scratch`` (bs::pair_bytes<T>(W) bytes a pair).  Row r from row r - 1
+// (scaled): M and I and the thread's part of the Del chain; the chain's
+// carry, D and the row's sum; the scaled row, stored.
+template <typename T>
+__global__ void __launch_bounds__(bs::SCRATCH_THREADS)
+fwd_tables_scratch(const float* __restrict__ emis,
+                   const int32_t* __restrict__ shifts,
+                   const int32_t* __restrict__ inc,
+                   const int32_t* __restrict__ rc0,
+                   const int32_t* __restrict__ j0, const T* __restrict__ m0,
+                   const T* __restrict__ i0, const T* __restrict__ d0,
+                   const int32_t* __restrict__ qlen,
+                   const int32_t* __restrict__ tlen,
+                   const int32_t* __restrict__ strand,
+                   const float* __restrict__ trans,
+                   const float* __restrict__ trans2, T* __restrict__ outM,
+                   T* __restrict__ outI, T* __restrict__ outD,
+                   T* __restrict__ outLs, int B, int Q, int W,
+                   unsigned char* __restrict__ scratch) {
+  __shared__ T tmp[32];
+  const int b = blockIdx.x;
+  const bs::Span sp(W);
+  const Trans tr = load_trans(strand[b] > 0 ? trans2 : trans);
+  const int ql = min(max(qlen[b], 0), Q);
+  const int tl = tlen[b];
+  const size_t wbase = (size_t)b * W + sp.k0;
+  const bs::Rows<T> st(scratch + (size_t)b * bs::pair_bytes<T>(W), W);
+  for (int l = 0; l < sp.n; ++l) {
+    const int a = sp.at(l);
+    st.M(0)[a] = m0[wbase + l];
+    st.I(0)[a] = i0[wbase + l];
+    st.D(0)[a] = d0[wbase + l];
+    st.R(0)[a] = rc0[wbase + l];
+  }
+  int jb = j0[(size_t)b * W];   // lane k sits at column jb + k
+  __syncthreads();
+  const float* em = emis + (size_t)b * 5 * Q;
+  const size_t tb = (size_t)b * Q * W + sp.k0;
+  T* oLs = outLs + (size_t)b * Q;
+  for (int r = 0; r < ql; ++r) {
+    const int p = r & 1, q = p ^ 1;
+    const int sv = shifts[(size_t)b * Q + r];
+    const int jn0 = jb + sv;
+    const T z = bs::fwd_pass1(st, sp, W, p, q, tr, em, Q, r, sv,
+                              inc[(size_t)b * Q + r], em[4 * (size_t)Q + r],
+                              jn0, tl);
+    const T sc = bs::fwd_pass2(st, sp, q, tr.md, tr.id, T(tr.dd), z, jn0, tl,
+                               tmp);
+    const T inv = wb::rcp_approx(sc);
+    T *nM = st.M(q), *nI = st.I(q), *nD = st.D(q);
+    const size_t o = tb + (size_t)r * W;
+    for (int l = 0; l < sp.n; ++l) {
+      const int a = sp.at(l);
+      const T m = nM[a] * inv, i = nI[a] * inv, d = nD[a] * inv;
+      nM[a] = m; nI[a] = i; nD[a] = d;
+      outM[o + l] = m; outI[o + l] = i; outD[o + l] = d;
+    }
+    if (threadIdx.x == 0) oLs[r] = sc;   // its log after the loop
+    jb = jn0;
+    __syncthreads();
+  }
+  // rows past q_len repeat the frozen state
+  const int p = ql & 1;
+  for (int r = ql; r < Q; ++r) {
+    const size_t o = tb + (size_t)r * W;
+    for (int l = 0; l < sp.n; ++l) {
+      const int a = sp.at(l);
+      outM[o + l] = st.M(p)[a];
+      outI[o + l] = st.I(p)[a];
+      outD[o + l] = st.D(p)[a];
+    }
+  }
+  // scales -> log scales, outside the row loop (the double log's call
+  // there would spill)
+  for (int r = threadIdx.x; r < Q; r += blockDim.x)
+    oLs[r] = r < ql ? wb::log_t(oLs[r]) : T(0);
+}
+
+// The scratch form of the backward tables: row i from row i + 1 (scaled),
+// from the init at row q_len.  The reverse Del chain D[k] = c[k] + dd
+// D[k+1] runs over a thread's lanes from its last, so both passes walk
+// the lanes downwards.
+template <typename T>
+__global__ void __launch_bounds__(bs::SCRATCH_THREADS)
+bwd_tables_scratch(const float* __restrict__ emis,
+                   const int32_t* __restrict__ shifts,
+                   const int32_t* __restrict__ inc,
+                   const int32_t* __restrict__ rcq,
+                   const int32_t* __restrict__ jq, const T* __restrict__ bm0,
+                   const T* __restrict__ bi0, const T* __restrict__ bd0,
+                   const int32_t* __restrict__ qlen,
+                   const int32_t* __restrict__ tlen,
+                   const int32_t* __restrict__ strand,
+                   const float* __restrict__ trans,
+                   const float* __restrict__ trans2, T* __restrict__ outM,
+                   T* __restrict__ outI, T* __restrict__ outD,
+                   T* __restrict__ outLs, int B, int Q, int W,
+                   unsigned char* __restrict__ scratch) {
+  __shared__ T tmp[32];
+  const int b = blockIdx.x;
+  const bs::Span sp(W);
+  const Trans tr = load_trans(strand[b] > 0 ? trans2 : trans);
+  const T dd = tr.dd;
+  const int ql = min(max(qlen[b], 0), Q);
+  const int tl = tlen[b];
+  const size_t wbase = (size_t)b * W + sp.k0;
+  const bs::Rows<T> st(scratch + (size_t)b * bs::pair_bytes<T>(W), W);
+  const size_t tb = (size_t)b * Q * W + sp.k0;
+  T* oLs = outLs + (size_t)b * Q;
+  for (int l = 0; l < sp.n; ++l) {
+    const int a = sp.at(l);
+    const T m = bm0[wbase + l], i = bi0[wbase + l], d = bd0[wbase + l];
+    st.M(0)[a] = m; st.I(0)[a] = i; st.D(0)[a] = d;
+    st.R(0)[a] = rcq[wbase + l];
+    for (int r = ql; r < Q; ++r) {   // rows at or past q_len keep the init
+      const size_t o = tb + (size_t)r * W + l;
+      outM[o] = m; outI[o] = i; outD[o] = d;
+    }
+  }
+  int jb = jq[(size_t)b * W];   // lane k sits at column jb + k
+  __syncthreads();
+  const float* em = emis + (size_t)b * 5 * Q;
+  for (int n = 0; n < ql; ++n) {
+    const int i = ql - 1 - n;
+    const int p = n & 1, q = p ^ 1;
+    const int sv = shifts[(size_t)b * Q + i];
+    const int nc = inc[(size_t)b * Q + i];
+    const float ei = em[4 * (size_t)Q + i];
+    const int ji0 = jb - sv;
+    const T *cM = st.M(p), *cI = st.I(p);
+    const int32_t* cR = st.R(p);
+    T *nM = st.M(q), *nI = st.I(q), *nD = st.D(q);
+    int32_t* nR = st.R(q);
+    // pass 1: u = em M1 and v = ei I1 (kept in the new row's M and I), the
+    // chars, and the thread's part of the chain at its first lane
+    T z = 0;
+    for (int l = sp.n - 1; l >= 0; --l) {
+      const int k = sp.k0 + l, a = sp.at(l);
+      T M1, I1;
+      int ri;
+      if (sv == 1) {   // I from lane k - 1, M from the same lane
+        const int b1 = k > 0 ? sp.prev(l) : a;
+        M1 = cM[a];
+        I1 = k > 0 ? cI[b1] : T(0);
+        ri = k > 0 ? cR[b1] : nc;
+      } else {
+        const int b1 = sp.next(l);
+        M1 = k + 1 < W ? cM[b1] : T(0);
+        I1 = cI[a];
+        ri = cR[a];
+      }
+      const int ji = ji0 + k;
+      const float e = ji < tl ? bs::match_emission(em, Q, i, ri) : 0.f;
+      const T u = e * M1, v = ei * I1;
+      nM[a] = u;
+      nI[a] = v;
+      nR[a] = ri;
+      z = wb::fma_t(dd, z, tr.dm * u + tr.di * v);
+    }
+    // pass 2: the chain's carry from the lanes after the thread's, then D,
+    // M and I of the row (0 past column tl) and its max
+    T w = bs::block_linrec_down(z, dd, sp.C, tmp);   // D after the last lane
+    T mx = 0;
+    for (int l = sp.n - 1; l >= 0; --l) {
+      const int a = sp.at(l);
+      const T u = nM[a], v = nI[a];
+      const T d = wb::fma_t(dd, w, tr.dm * u + tr.di * v);
+      const bool ok = ji0 + sp.k0 + l <= tl;
+      const T m = ok ? tr.mm * u + tr.mi * v + tr.md * w : T(0);
+      const T ii = ok ? tr.im * u + tr.ii * v + tr.id * w : T(0);
+      const T dm = ok ? d : T(0);
+      nM[a] = m; nI[a] = ii; nD[a] = dm;
+      mx = wb::max_t(mx, m + ii + dm);
+      w = d;
+    }
+    const T sc = bs::block_reduce<T, true>(mx, tmp) + T(1e-30);
+    const T inv = wb::rcp_approx(sc);
+    const size_t o = tb + (size_t)i * W;
+    for (int l = 0; l < sp.n; ++l) {
+      const int a = sp.at(l);
+      const T m = nM[a] * inv, ii = nI[a] * inv, d = nD[a] * inv;
+      nM[a] = m; nI[a] = ii; nD[a] = d;
+      outM[o + l] = m; outI[o + l] = ii; outD[o + l] = d;
+    }
+    if (threadIdx.x == 0) oLs[i] = sc;   // its log after the loop
+    jb = ji0;
+    __syncthreads();
+  }
+  // scales -> log scales (rows at or past q_len: 0)
+  for (int r = threadIdx.x; r < Q; r += blockDim.x)
+    oLs[r] = r < ql ? wb::log_t(oLs[r]) : T(0);
+}
+
 // The geometries this library is built for, by type: (lanes per thread,
 // warps per pair).  ops/phmm_tables.py::tables_geometry picks one of them:
 // the register form up to 4 lanes a thread, the wide form (state in shared
@@ -613,20 +805,30 @@ bwd_tables_kernel(const float* __restrict__ emis,
       const T *d0, const int32_t *qlen, const int32_t *tlen,                \
       const int32_t *strand, const float *trans, const float *trans2,       \
       T *outM, T *outI, T *outD, T *outLs, int B, int Q, int W, int lanes,  \
-      int warps, int ppb, void *stream
+      int warps, int ppb, unsigned char *scratch, void *stream
 #define TABLE_PASS                                                          \
   emis, shifts, inc, rc0, j0, m0, i0, d0, qlen, tlen, strand, trans,        \
-      trans2, outM, outI, outD, outLs, B, Q, W, ppb
+      trans2, outM, outI, outD, outLs, B, Q, W
 
 // Returns 0, a CUDA error code, or GEOMETRY_ERROR for a geometry the
-// library was not built for (or that does not cover W).
-#define TABLE_LAUNCH(GEOMETRIES, KERNEL)                                     \
+// library was not built for (or that does not cover W).  Above
+// SHARED_FORM_W the scratch form: ``lanes`` = ceil(W / SCRATCH_THREADS),
+// SCRATCH_WARPS warps, one pair a block, and ``scratch`` holds
+// bs::pair_bytes<T>(W) bytes a pair (ops/phmm_tables.py::scratch_bytes).
+#define TABLE_LAUNCH(T, GEOMETRIES, KERNEL, SCRATCH_KERNEL)                 \
   if (B == 0) return 0;                                                     \
-  if (W < 1 || W > MAX_W || ppb < 1 || lanes * 32 * warps < W ||            \
-      ppb * warps > block_warps(warps))                                     \
-    return GEOMETRY_ERROR;                                                  \
-  const dim3 grid((B + ppb - 1) / ppb), block(ppb * warps * 32);            \
+  if (W < 1 || ppb < 1 || lanes * 32 * warps < W) return GEOMETRY_ERROR;    \
   cudaStream_t s = (cudaStream_t)stream;                                    \
+  if (W > SHARED_FORM_W) {                                                  \
+    if (warps != bs::SCRATCH_WARPS || ppb != 1 || scratch == nullptr ||     \
+        lanes != (W + bs::SCRATCH_THREADS - 1) / bs::SCRATCH_THREADS)       \
+      return GEOMETRY_ERROR;                                                \
+    SCRATCH_KERNEL<T><<<B, bs::SCRATCH_THREADS, 0, s>>>(TABLE_PASS,         \
+                                                        scratch);           \
+    return (int)cudaGetLastError();                                         \
+  }                                                                         \
+  if (ppb * warps > block_warps(warps)) return GEOMETRY_ERROR;              \
+  const dim3 grid((B + ppb - 1) / ppb), block(ppb * warps * 32);            \
   bool known = false;                                                       \
   GEOMETRIES(KERNEL)                                                        \
   if (!known) return GEOMETRY_ERROR;                                        \
@@ -639,7 +841,7 @@ bwd_tables_kernel(const float* __restrict__ emis,
       cudaFuncSetAttribute(kernel<T, L_, WPP_>,                             \
                            cudaFuncAttributeMaxDynamicSharedMemorySize,     \
                            smem);                                           \
-    kernel<T, L_, WPP_><<<grid, block, smem, s>>>(TABLE_PASS);              \
+    kernel<T, L_, WPP_><<<grid, block, smem, s>>>(TABLE_PASS, ppb);         \
     known = true;                                                           \
   }
 #define FWD32_CASE(L_, WPP_) TABLE_CASE(fwd_tables_kernel, float, L_, WPP_)
@@ -648,18 +850,18 @@ bwd_tables_kernel(const float* __restrict__ emis,
 #define BWD64_CASE(L_, WPP_) TABLE_CASE(bwd_tables_kernel, double, L_, WPP_)
 
 extern "C" int fwd_tables_launch(TABLE_ARGS(float)) {
-  TABLE_LAUNCH(TABLE_GEOMETRIES_F32, FWD32_CASE)
+  TABLE_LAUNCH(float, TABLE_GEOMETRIES_F32, FWD32_CASE, fwd_tables_scratch)
 }
 extern "C" int fwd_tables64_launch(TABLE_ARGS(double)) {
-  TABLE_LAUNCH(TABLE_GEOMETRIES_F64, FWD64_CASE)
+  TABLE_LAUNCH(double, TABLE_GEOMETRIES_F64, FWD64_CASE, fwd_tables_scratch)
 }
 
 // The backward pass takes the band chars and columns of row Q (rcq, jq)
 // and the backward init (bm0, bi0, bd0) in the forward's rc0, j0, m0, i0,
 // d0 slots.
 extern "C" int bwd_tables_launch(TABLE_ARGS(float)) {
-  TABLE_LAUNCH(TABLE_GEOMETRIES_F32, BWD32_CASE)
+  TABLE_LAUNCH(float, TABLE_GEOMETRIES_F32, BWD32_CASE, bwd_tables_scratch)
 }
 extern "C" int bwd_tables64_launch(TABLE_ARGS(double)) {
-  TABLE_LAUNCH(TABLE_GEOMETRIES_F64, BWD64_CASE)
+  TABLE_LAUNCH(double, TABLE_GEOMETRIES_F64, BWD64_CASE, bwd_tables_scratch)
 }

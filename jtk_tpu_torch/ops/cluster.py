@@ -232,9 +232,10 @@ SMEM_LIMIT = 232448      # bytes of shared memory a block may use (H100)
 
 
 def chain_smem_bytes(K: int, V: int, Rmax: int) -> int:
-    """Shared memory of one chain (one warp): the K x Vp aggregates (Vp =
-    V padded to 32 times a power of two), a column scratch, the counts and
-    the assignment (``csrc/mcmc_chain.cu``)."""
+    """Shared memory of one chain (one warp) in the general form: the K x
+    Vp aggregates (Vp = V padded to 32 times a power of two), a column
+    scratch, the counts and the assignment (``csrc/mcmc_chain.cu``; the
+    register form takes less, the size table and two assignments)."""
     Vp = 32 * chain_groups(V)
     return 4 * (3 * K * Vp + Vp + K + Rmax)
 
@@ -246,12 +247,23 @@ def chain_groups(V: int) -> int:
     return max(1, P // 32)
 
 
-def mcmc_chain(st, X, size_lk, idx, prop, logu):
+def chain_form(K: int, V: int, Rmax: int) -> str:
+    """The kernel's form for K clusters, V columns and Rmax reads:
+    "registers" (K 2..4, V <= 32 and the Rmax x V features within a block's
+    shared memory: each lane keeps its column's aggregates in registers)
+    or "general" (the aggregates in shared memory)."""
+    small = 4 * (Rmax * V + 3 * Rmax + 1) <= SMEM_LIMIT
+    return "registers" if 2 <= K <= 4 and V <= 32 and small else "general"
+
+
+def mcmc_chain(st, X, size_lk, idx, prop, logu, general: bool = False):
     """Advance the chain state ``st`` in place over one draw block.
 
     On CUDA tensors this launches the kernel of ``csrc/mcmc_chain.cu``, one
     warp per (chunk, restart) lane, bit-exact against
-    :func:`mcmc_chain_plain`; on CPU tensors it runs the plain version."""
+    :func:`mcmc_chain_plain`, in the form :func:`chain_form` picks (the
+    general form for every K and V with ``general``, for timing the two
+    against each other); on CPU tensors it runs the plain version."""
     if X.device.type == "cpu":
         return mcmc_chain_plain(st, X, size_lk, idx, prop, logu)
     B, Rmax, V = X.shape
@@ -282,7 +294,8 @@ def mcmc_chain(st, X, size_lk, idx, prop, logu):
     launch("mcmc_chain", "mcmc_chain_launch", X, size_lk, idx32, prop32,
            logu, st["assign"], st["best_assign"], st["agg_gain"],
            st["agg_pos"], st["agg_neg"], st["counts"], st["lk"],
-           st["best_lk"], B, S, Rmax, K, V, chain_groups(V), T, smem)
+           st["best_lk"], B, S, Rmax, K, V, chain_groups(V), T, smem,
+           int(general))
     CHAIN_LAUNCHES.add((B, S, K, V, Rmax))
 
 

@@ -2,7 +2,7 @@
 
 Counterpart of ``jtk_tpu/ops/pallas_k3.py``.  :func:`edit_dp` is the kernel
 wrapper: on a CUDA tensor it launches the hand-written kernel
-``csrc/edit_dp.cu`` (W up to MAX_W, :func:`edit_dp_geometry`); on a CPU
+``csrc/edit_dp.cu`` (any W, :func:`edit_dp_geometry`); on a CPU
 tensor it runs :func:`edit_dp_plain`, the same function in plain PyTorch.
 :func:`traceback_packed` walks the stream back from each pair's end: on a
 CUDA tensor it launches the walk kernel of the same source, on a CPU
@@ -14,8 +14,9 @@ used by every alignment in the port.
 
 Band conventions (as in the reference): offsets have unit increments,
 ``rc[k] = r[j-1]`` for ``j = off_i + k``.  The stream is ``(Q, B, W)``
-int16 holding ``ptr | left_run << 2`` (ptr 0 = diag, 1 = up, 2 = left;
-diag wins ties over up over left).  Only the rows of each pair up to its
+int16 (int32 above STREAM_INT16_W lanes, :func:`cell_dtype`) holding
+``ptr | left_run << 2`` (ptr 0 = diag, 1 = up, 2 = left; diag wins ties
+over up over left).  Only the rows of each pair up to its
 ``q_len`` hold cells (the walk reads no others); ``last`` is the state at
 row ``q_len``.
 """
@@ -29,13 +30,15 @@ from .cuda_build import Launches, check, launch
 
 INF = 1 << 30
 DEL_TOPK = 192
-MAX_W = 8192            # ptr | run << 2 with run < W fits an int16
+STREAM_INT16_W = 8192   # ptr | run << 2 with run < W fits an int16
 WARP_FORM_W = 2048      # 16 warps x 4 lanes: the widest warp-form band
 MAX_LANES = 4           # band lanes a thread keeps in the warp form
 MAX_WARPS = 16          # warps of a pair in the warp form
 MAX_THREADS = 1024      # threads of a pair's block in the block form
-# (Q, B, W) int16 stream of one launch stays under 2^30 cells (2 GB)
-STREAM_CELLS = 1 << 30
+# the (Q, B, W) stream of one launch stays under 2 GB
+STREAM_BYTES = 1 << 31
+# the scratch form's state lies in shared memory up to this many bytes
+EDIT_SMEM_STATE = 200 * 1024
 
 LAUNCHES = Launches("edit_dp")
 TB_LAUNCHES = Launches("edit_tb")
@@ -47,17 +50,46 @@ def edit_dp_geometry(W: int) -> tuple[int, int, int]:
     form: the fewest lanes up to MAX_LANES that one warp needs, then as
     many warps as the band needs, 4 warps a block (or one wider pair).
     Above, the block form: one pair a block of at most MAX_THREADS threads,
-    4 lanes a thread (8 above 4096)."""
-    if not 1 <= W <= MAX_W:
-        raise ValueError(f"edit_dp: band width {W} outside 1..{MAX_W}")
+    4 lanes a thread (8 above 4096).  Above STREAM_INT16_W the scratch
+    form: MAX_THREADS threads, ceil(W / MAX_THREADS) lanes a thread, any
+    width (:func:`edit_state_bytes`)."""
+    if W < 1:
+        raise ValueError(f"edit_dp: band width {W} below 1")
     if W <= WARP_FORM_W:
         lanes = 1
         while lanes < MAX_LANES and 32 * lanes < W:
             lanes *= 2
         warps = -(-W // (32 * lanes))
         return lanes, warps, max(1, 4 // warps)
+    if W > STREAM_INT16_W:
+        return -(-W // MAX_THREADS), MAX_THREADS // 32, 1
     lanes = 4 if W <= 4 * MAX_THREADS else 8
     return lanes, -(-W // (32 * lanes)), 1
+
+
+def cell_dtype(W: int) -> torch.dtype:
+    """The stream's cell type: int16 up to STREAM_INT16_W lanes (a left run
+    stays below W), int32 above."""
+    return torch.int16 if W <= STREAM_INT16_W else torch.int32
+
+
+def edit_state_bytes(W: int) -> int:
+    """Bytes of the scratch form's per-pair state (above STREAM_INT16_W):
+    e and band chars of two rows, the candidates and their diag flags, 15
+    bytes a lane of W padded to a multiple of MAX_THREADS, rounded up to
+    16.  In shared memory up to EDIT_SMEM_STATE, else in device memory."""
+    lanes = -(-W // MAX_THREADS) * MAX_THREADS
+    return (15 * lanes + 15) // 16 * 16
+
+
+def _stream(Q: int, B: int, W: int, device) -> torch.Tensor:
+    """A (Q, B, W) stream of :func:`cell_dtype` cells with 16 bytes of
+    allocation past its end (the walk copies rows by 16-byte aligned
+    blocks), uninitialised."""
+    dt = cell_dtype(W)
+    pad = 16 // torch.empty((), dtype=dt).element_size()
+    return torch.empty(Q * B * W + pad, dtype=dt, device=device)[
+        :Q * B * W].view(Q, B, W)
 
 
 def edit_dp_plain(e0, qs, shifts, inc, rc0, j0, qlen, tlen):
@@ -71,7 +103,7 @@ def edit_dp_plain(e0, qs, shifts, inc, rc0, j0, qlen, tlen):
     e, j, rc = e0.clone(), j0.clone(), rc0.clone()
     tl = tlen[:, None]
     ql = qlen[:, None]
-    out = torch.empty((Q, B, W), dtype=torch.int16, device=dev)
+    out = torch.empty((Q, B, W), dtype=cell_dtype(W), device=dev)
     for r in range(Q):
         qc = qs[:, r:r + 1]
         sv = shifts[:, r:r + 1]
@@ -94,7 +126,7 @@ def edit_dp_plain(e0, qs, shifts, inc, rc0, j0, qlen, tlen):
             .to(torch.int32)
         nonleft = torch.cummax(torch.where(ptr != 2, ks, -1), dim=1).values
         run = torch.where(ptr == 2, ks - nonleft, 0)
-        out[r] = (ptr | (run << 2)).to(torch.int16)
+        out[r] = (ptr | (run << 2)).to(out.dtype)
         live = (r + 1) <= ql
         e = torch.where(live, er, e)
         j = torch.where(live, j_n, j)
@@ -110,13 +142,15 @@ def edit_dp(e0, qs, shifts, inc, rc0, j0, qlen, tlen):
     char entering lane W-1 on a shift; qlen, tlen: (B,) int32.  Each row
     of j0 is unit-step (``j0[b, k] = j0[b, 0] + k``, as :func:`k3_inputs`
     makes it) and chars fit an int8.
-    Returns (stream (Q, B, W) int16, last row (B, W) int32); on the card a
-    pair's stream rows from index q_len on are not written."""
+    Returns (stream (Q, B, W) of :func:`cell_dtype` cells, last row (B, W)
+    int32); on the card a pair's stream rows from index q_len on are not
+    written."""
     if e0.device.type == "cpu":
         # rows past every q_len freeze the state and are never traced back:
         # the plain run stops at the longest query (those stream rows stay 0)
         Qe = int(qlen.max()) if qlen.numel() else 0
-        out = torch.zeros((qs.shape[1],) + tuple(e0.shape), dtype=torch.int16)
+        out = torch.zeros((qs.shape[1],) + tuple(e0.shape),
+                          dtype=cell_dtype(e0.shape[1]))
         out[:Qe], last = edit_dp_plain(e0, qs[:, :Qe], shifts[:, :Qe],
                                        inc[:, :Qe], rc0, j0, qlen, tlen)
         return out, last
@@ -129,12 +163,15 @@ def edit_dp(e0, qs, shifts, inc, rc0, j0, qlen, tlen):
                            (qlen, "qlen", (B,)), (tlen, "tlen", (B,))):
         check(t, torch.int32, shape, name)
     # the kernel stops at each pair's q_len: rows past it stay unwritten
-    out = torch.empty((Q, B, W), dtype=torch.int16, device=e0.device)
+    out = _stream(Q, B, W, e0.device)
     if Q == 0:
         return out, e0.clone()
     last = torch.empty((B, W), dtype=torch.int32, device=e0.device)
+    state = W > STREAM_INT16_W and edit_state_bytes(W) > EDIT_SMEM_STATE
+    scratch = torch.empty(B * edit_state_bytes(W) if state else 0,
+                          dtype=torch.uint8, device=e0.device)
     launch("edit_dp", "edit_dp_launch", e0, qs, shifts, inc, rc0, j0, qlen,
-           tlen, out, last, B, Q, W, lanes, warps, ppb)
+           tlen, out, last, B, Q, W, lanes, warps, ppb, scratch)
     LAUNCHES.add((B, Q, W))
     return out, last
 
@@ -173,14 +210,24 @@ def traceback_packed(packed, off, q_len, end_j, W: int):
     at once.  Returns (dels (B, Q) int32, ops (B, Q) uint8, start_j (B,)
     int64): step t covers query char q_len-1-t, ``dels[t]`` ref-deletions
     first, then op 1 = M or 2 = I; steps at and past q_len are 0.  On a
-    CUDA tensor it launches the walk kernel of ``csrc/edit_dp.cu``, on a
-    CPU tensor it runs :func:`traceback_packed_plain`."""
+    CUDA tensor it launches the walk kernel of ``csrc/edit_dp.cu`` (the
+    stream of :func:`edit_dp`: :func:`cell_dtype` cells, 16-byte aligned),
+    on a CPU tensor it runs :func:`traceback_packed_plain` (either cell
+    type)."""
     if packed.device.type == "cpu":
         return traceback_packed_plain(packed, off, q_len, end_j, W)
     Q, B, _ = packed.shape
-    check(packed, torch.int16, (Q, B, W), "packed")
+    check(packed, cell_dtype(W), (Q, B, W), "packed")
     if packed.data_ptr() % 16:
         raise ValueError("packed: expected a 16-byte aligned stream")
+    end = packed.storage_offset() + packed.numel()
+    if (packed.untyped_storage().nbytes()
+            < end * packed.element_size() + 16):
+        # the walk copies whole 16-byte blocks: a stream that edit_dp did
+        # not allocate gets its padding here
+        padded = _stream(Q, B, W, packed.device)
+        padded.copy_(packed)
+        packed = padded
     off = off.to(torch.int64).contiguous()
     ql = q_len.to(torch.int32).contiguous()
     ej = end_j.to(torch.int64).contiguous()
@@ -257,7 +304,8 @@ def k3_batch(q, r, off, q_lens, t_lens, W: int, mode: str):
     ql = q_lens.to(torch.int32).contiguous()
     tl = t_lens.to(torch.int32).contiguous()
     off = off.to(torch.int64)
-    maxb = max(1, min(2048, STREAM_CELLS // max(Q * W, 1)))
+    cell = torch.empty((), dtype=cell_dtype(W)).element_size()
+    maxb = max(1, min(2048, STREAM_BYTES // max(Q * W * cell, 1)))
     parts = []
     for s in range(0, B, maxb):
         sl = slice(s, min(B, s + maxb))

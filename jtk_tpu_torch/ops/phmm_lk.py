@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from .cuda_build import Launches, check, launch
-from .phmm_tables import EPS, _linrec, _shl, _shr, tables_geometry
+from .phmm_tables import EPS, _linrec, _shl, _shr, scratch, tables_geometry
 
 LAUNCHES = Launches("phmm_lk")
 
@@ -138,7 +138,7 @@ def phmm_lk(qs, shifts, inc, rc0, j0, qlen, tlen, trans, me, ie):
 
     qs, shifts, inc (B, Q) int32; rc0, j0 (B, W) int32; qlen, tlen (B,)
     int32; trans, me, ie (8, 8) f32 padded tables (:func:`tables8`).
-    W runs up to ``MAX_W`` (the launch geometry of the K1 table kernels,
+    Any W >= 1 (the launch geometry of the K1 table kernels,
     :func:`~.phmm_tables.tables_geometry`).  Returns (B,) f32."""
     if rc0.device.type == "cpu":
         return phmm_lk_plain(qs, shifts, inc, rc0, j0, qlen, tlen, trans, me,
@@ -157,6 +157,7 @@ def phmm_lk(qs, shifts, inc, rc0, j0, qlen, tlen, trans, me, ie):
     out = torch.empty(B, dtype=f32, device=rc0.device)
     emis = torch.empty((B, 5, Q), dtype=f32, device=rc0.device)
     launch("phmm_lk", "phmm_lk_launch", qs, shifts, inc, rc0, j0, qlen, tlen,
-           trans, me, ie, emis, out, B, Q, W, *geometry)
+           trans, me, ie, emis, out, B, Q, W, *geometry,
+           scratch(B, W, f32, rc0.device))
     LAUNCHES.add((B, Q, W))
     return out

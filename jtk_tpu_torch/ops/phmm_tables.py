@@ -28,9 +28,10 @@ EPS = 1e-30
 FWD_LAUNCHES = Launches("fwd_tables")
 BWD_LAUNCHES = Launches("bwd_tables")
 
-MAX_W = 4096            # the widest band of the K1 family (tables, K1l, counts)
+SHARED_FORM_W = 4096    # the widest band whose row state fits shared memory
 MAX_LANES = 4           # band lanes a thread keeps in registers
 WIDE_WARPS = 8          # warps a pair in the wide form
+SCRATCH_THREADS = 512   # threads of a pair's block in the scratch form
 
 
 def register_form_w(dtype=torch.float32) -> int:
@@ -49,10 +50,16 @@ def tables_geometry(W: int, kernel: str = "tables",
     wide bands take more warps, 1 to 16, rather than more lanes); a block
     holds 4 warps, or one pair of more.  Above ``register_form_w`` the wide
     form keeps each lane's state in shared memory: 8 lanes a thread up to
-    2048, 16 up to MAX_W, WIDE_WARPS warps, one pair a block.  The counts
-    are powers of two (the kernels are built for those)."""
-    if not 1 <= W <= MAX_W:
-        raise ValueError(f"{kernel}: band width {W} outside 1..{MAX_W}")
+    2048, 16 up to SHARED_FORM_W, WIDE_WARPS warps, one pair a block (the
+    counts are powers of two: the kernels are built for those).  Above
+    SHARED_FORM_W the scratch form (``csrc/band_scratch.cuh``): one block
+    of SCRATCH_THREADS threads a pair, ceil(W / SCRATCH_THREADS) lanes a
+    thread, the state in a per-pair scratch in device memory
+    (:func:`scratch_bytes`); any width."""
+    if W < 1:
+        raise ValueError(f"{kernel}: band width {W} below 1")
+    if W > SHARED_FORM_W:
+        return -(-W // SCRATCH_THREADS), SCRATCH_THREADS // 32, 1
     if W > register_form_w(dtype):
         return (8 if W <= 32 * 8 * WIDE_WARPS else 16), WIDE_WARPS, 1
     lanes = 1
@@ -62,6 +69,25 @@ def tables_geometry(W: int, kernel: str = "tables",
     while 32 * lanes * warps < W:
         warps *= 2
     return lanes, warps, max(1, 4 // warps)
+
+
+def scratch_bytes(W: int, dtype=torch.float32) -> int:
+    """Bytes of device scratch a pair takes at band width ``W``: none up to
+    SHARED_FORM_W; above, two rows of M, I, D in ``dtype`` and two rows of
+    band chars, W padded to a multiple of SCRATCH_THREADS lanes each
+    (``band_scratch.cuh::pair_bytes``)."""
+    if W <= SHARED_FORM_W:
+        return 0
+    size = torch.finfo(dtype).bits // 8
+    lanes = -(-W // SCRATCH_THREADS) * SCRATCH_THREADS
+    return lanes * 2 * (3 * size + 4)
+
+
+def scratch(B: int, W: int, dtype, device) -> torch.Tensor:
+    """The scratch form's per-pair state (:func:`scratch_bytes`), or an
+    empty tensor below it (the kernels then take a null pointer)."""
+    n = B * scratch_bytes(W, dtype)
+    return torch.empty(n, dtype=torch.uint8, device=device)
 
 
 def _shr(x, n=1):
@@ -244,7 +270,7 @@ def _launch_tables(kind, emis, shifts, inc, rc0, j0, m0, i0, d0, qlen, tlen,
     entry = f"{kind}_tables{'64' if dt_t == torch.float64 else ''}_launch"
     launch("phmm_tables", entry, emis, shifts, inc, rc0, j0, m0, i0, d0,
            qlen, tlen, strand, trans, trans2, outM, outI, outD, outLs, B, Q,
-           W, *geometry)
+           W, *geometry, scratch(B, W, dt_t, dev))
     return outM, outI, outD, outLs
 
 

@@ -411,3 +411,194 @@ def test_chain_kernel_matches_plain_bitwise(B, S, K, V, Rmax):
         for name, v in plain.items():
             assert torch.equal(st[name], v), name
     assert (st["best_lk"] >= st["lk"]).all()
+
+
+@pytest.mark.parametrize("B,S,K,V,Rmax,general", [
+    (414, 20, 2, 8, 128, False), (27, 20, 2, 8, 128, True)],
+    ids=["scale-414-chunks", "path-b-general-form"])
+def test_chain_kernel_forms_match_plain_bitwise(B, S, K, V, Rmax, general):
+    """The chain at a 1 Mb run's 414 chunks (the register form), and the
+    general form at path (b)'s K 2 (forced), against mcmc_chain_plain over
+    two draw blocks: every state tensor the same bits after each."""
+    require_cuda()
+    from jtk_tpu_torch.ops import cluster as pcl
+    X, Rt, size_lk, st, gen = _chain_case(np.random.default_rng(B + K), B,
+                                          S, K, V, Rmax)
+    plain = {k: v.clone() for k, v in st.items()}
+    for _block in range(2):
+        draws = pcl.block_draws(*pcl.generator_block(
+            gen, (pcl.DRAW_BLOCK, B, S), K, X.device), Rt, Rmax)
+        pcl.mcmc_chain(st, X, size_lk, *draws, general=general)
+        pcl.mcmc_chain_plain(plain, X, size_lk, *draws)
+        for name, v in plain.items():
+            assert torch.equal(st[name], v), name
+
+
+def _beyond_pairs_cuda(rng, W, B=2, qlen=300):
+    """B reads of ~``qlen`` bases from the two ends of a template W + 200
+    long, in a band of W: a short read against a long template, the
+    layout past the K1 family's old limit of 4096."""
+    from jtk_tpu_torch.io import sim
+    from jtk_tpu_torch.ops.banded_align import linear_offsets
+    tlen = W + 200
+    tpl = sim.random_genome(rng, tlen)
+    reads = [sim.noisy_read(rng, tpl[s:s + qlen], 0.05)
+             for s in ((0, tlen - qlen) * B)[:B]]
+    q_lens = np.array([len(r) for r in reads], np.int64)
+    Q = ((int(q_lens.max()) + 63) // 64) * 64
+    qs = np.full((B, Q), 4, np.int8)
+    for b, r in enumerate(reads):
+        qs[b, :len(r)] = r
+    offs = np.stack([linear_offsets(int(n), tlen, Q, W) for n in q_lens])
+    return tpl, qs, offs, q_lens
+
+
+@pytest.mark.parametrize("W", [4224, 8192])
+def test_k1_family_beyond_old_limit_matches_plain(W):
+    """K1f and K1b (float32 and float64), K1l and counts past the old limit
+    of 4096 (the scratch form) against their plain versions: tables rtol
+    2e-3 / atol 1e-5, cumulative log scales and lk rtol 1e-4 / atol 2e-2,
+    counts rtol 1e-3 / atol 1e-4 and the same bits from two calls."""
+    require_cuda()
+    from jtk_tpu_torch.ops import phmm_grad as pg
+    from jtk_tpu_torch.ops import phmm_lk as k1l
+    from jtk_tpu_torch.ops import phmm_tables as pt
+    from jtk_tpu_torch.ops.phmm import PHMMParams
+    tpl, qs, offs, q_lens = _beyond_pairs_cuda(np.random.default_rng(W), W)
+    tlen = len(tpl)
+    params = PHMMParams.default("cuda")
+    prep = pt.prep_tables_inputs(qs, tpl, offs, q_lens, tlen, params, W,
+                                 device="cuda")
+    for dtype in (torch.float32, torch.float64):
+        fwd_args, bwd_args, _aux = pt.kernel_inputs(prep, W, dtype)
+        for kern, plain, args in (
+                (pt.fwd_tables, pt.fwd_tables_plain, fwd_args),
+                (pt.bwd_tables, pt.bwd_tables_plain, bwd_args)):
+            got, want = kern(*args), plain(*args)
+            assert all(g.dtype == dtype for g in got)
+            for g, w in zip(got[:3], want[:3]):
+                torch.testing.assert_close(g, w, rtol=2e-3, atol=1e-5)
+            torch.testing.assert_close(torch.cumsum(got[3], 1),
+                                       torch.cumsum(want[3], 1), rtol=1e-4,
+                                       atol=2e-2)
+    args = k1l.lk_inputs(qs, tpl, offs, q_lens, tlen, W, device="cuda")
+    tabs = k1l.tables8(params, "cuda")
+    torch.testing.assert_close(k1l.phmm_lk(*args, *tabs),
+                               k1l.phmm_lk_plain(*args, *tabs), rtol=1e-4,
+                               atol=2e-2)
+    batch = pg.PairBatch(qs, tpl, offs, q_lens, tlen, W, device="cuda")
+    cargs = pg.counts_args(pg.counts_prep(params, batch), W)
+    got = pg.phmm_counts(*cargs)
+    assert torch.equal(got, pg.phmm_counts(*cargs))
+    torch.testing.assert_close(got, pg.phmm_counts_plain(*cargs), rtol=1e-3,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("W", [8320, 16384])
+def test_edit_dp_and_walk_beyond_old_limit_match_plain(W):
+    """K3 and its walk past the old limit of 8192 (the scratch form, int32
+    cells; its state in shared memory at 8320, in device memory at 16 384)
+    against their plain versions, bit-exact, on one ~W-long chunk in a read
+    window (a consensus tile's layout)."""
+    require_cuda()
+    from jtk_tpu_torch.ops import edit_dp as k3
+    args = _k3_inputs(np.random.default_rng(W), B=1, clen=W + 100, W=W,
+                      margin=300)
+    qlen, tlen = args[6], args[7]
+    packed, last = k3.edit_dp(*args)
+    want, want_last = k3.edit_dp_plain(*args)
+    assert packed.dtype == torch.int32
+    assert _rows_equal(packed, want, qlen) and torch.equal(last, want_last)
+    off = torch.cat([args[5][:, :1].long(), args[5][:, :1].long()
+                     + torch.cumsum(args[2].long(), 1)], 1)
+    _score, end = k3.select_end(last, off, qlen.long(), tlen.long(), W,
+                                "infix")
+    got = k3.traceback_packed(packed, off, qlen, end, W)
+    ref = k3.traceback_packed_plain(packed, off, qlen, end, W)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+
+
+def test_walk_with_a_left_run_past_8192_matches_plain():
+    """A query against a reference with an 8.3 kb insertion (global, W
+    8448): the DP kernel's int32 cells hold the left run of ~8300 lanes,
+    and the walk kernel takes it as one deletion run, as the plain
+    versions do."""
+    require_cuda()
+    from jtk_tpu_torch.ops import edit_dp as k3
+    from jtk_tpu_torch.ops.banded_align import linear_offsets
+    rng = np.random.default_rng(29)
+    Q, ins, W = 150, 8300, 8448
+    q = rng.integers(0, 2, Q)
+    r = np.concatenate([q[:75], rng.integers(2, 4, ins), q[75:]])
+    T = len(r)
+    dev = torch.device("cuda")
+    off = torch.as_tensor(linear_offsets(Q, T, Q, W)[None], device=dev)
+    ql = torch.tensor([Q], dtype=torch.int32, device=dev)
+    tl = torch.tensor([T], dtype=torch.int32, device=dev)
+    args = k3.k3_inputs(torch.as_tensor(q[None], device=dev),
+                        torch.as_tensor(r[None], device=dev), off, tl.long(),
+                        W, "global")
+    packed, last = k3.edit_dp(*args, ql, tl)
+    want, want_last = k3.edit_dp_plain(*args, ql, tl)
+    assert _rows_equal(packed, want, ql) and torch.equal(last, want_last)
+    _score, end = k3.select_end(last, off, ql.long(), tl.long(), W, "global")
+    got = k3.traceback_packed(packed, off, ql, end, W)
+    ref = k3.traceback_packed_plain(packed, off, ql, end, W)
+    for g, w in zip(got, ref):
+        assert torch.equal(g, w)
+    assert int(got[0].max()) >= 8192
+
+
+@pytest.mark.parametrize("B,W", [(600, 256), (800, 640)],
+                         ids=["mapper-like-W256", "W640-many-pairs"])
+def test_walk_windows_match_plain(B, W):
+    """With many pairs an SM the walk copies a window of each row around
+    its column and reads a cell outside it from device memory: bit-exact
+    against the plain walk (including pairs of q_len 0 and pairs whose
+    walk leaves the window on long deletions)."""
+    require_cuda()
+    from jtk_tpu_torch.ops import edit_dp as k3
+    args = list(_k3_inputs(np.random.default_rng(B + W), B=B, clen=600,
+                           W=W, margin=150))
+    args[6][:3] = 0
+    qlen, tlen = args[6], args[7]
+    packed, last = k3.edit_dp(*args)
+    off = torch.cat([args[5][:, :1].long(), args[5][:, :1].long()
+                     + torch.cumsum(args[2].long(), 1)], 1)
+    _score, end = k3.select_end(last, off, qlen.long(), tlen.long(), W,
+                                "infix")
+    got = k3.traceback_packed(packed, off, qlen, end, W)
+    ref = k3.traceback_packed_plain(packed, off, qlen, end, W)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+def test_edit_dp_and_walk_at_w32768_read_device_memory():
+    """At W 32 768 a stream row of int32 cells takes 128 KB, more than half
+    of a block's shared memory: K3's scratch form keeps its state in device
+    memory and the walk reads its cells from device memory, with no ring.
+    Both bit-exact against their plain versions (random pairs, infix)."""
+    require_cuda()
+    from jtk_tpu_torch.ops import edit_dp as k3
+    B, Q, W = 2, 600, 32768
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    T = Q + W
+    q = torch.randint(0, 4, (B, Q), generator=g, device=dev)
+    r = torch.randint(0, 4, (B, T), generator=g, device=dev)
+    ii = torch.arange(Q + 1, device=dev)
+    off = (ii - W // 4).clamp(0, T - W + 1)[None].expand(B, Q + 1) \
+        .contiguous()
+    tl = torch.full((B,), T, dtype=torch.int64, device=dev)
+    qlen = torch.full((B,), Q, dtype=torch.int32, device=dev)
+    args = k3.k3_inputs(q, r, off, tl, W, "infix") + (qlen,
+                                                       tl.to(torch.int32))
+    packed, last = k3.edit_dp(*args)
+    want, want_last = k3.edit_dp_plain(*args)
+    assert _rows_equal(packed, want, qlen) and torch.equal(last, want_last)
+    _score, end = k3.select_end(last, off, qlen.long(), tl, W, "infix")
+    got = k3.traceback_packed(packed, off, qlen, end, W)
+    ref = k3.traceback_packed_plain(packed, off, qlen, end, W)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)

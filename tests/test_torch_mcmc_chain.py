@@ -202,3 +202,171 @@ def test_chain_column_groups(V, M):
     assert pcl.chain_groups(V) == M
     assert pcl.chain_smem_bytes(2, V, 128) == 4 * (3 * 2 * 32 * M + 32 * M
                                                    + 2 + 128)
+
+
+def _tree(col, width):
+    """The __shfl_down_sync tree of the chain kernel over the first
+    ``width`` lanes (a power of two; a lane past 31 reads its own value),
+    in numpy float32: lane 0's sum."""
+    lanes = col.copy()
+    h = width // 2
+    while h >= 1:
+        lanes = np.array([lanes[i] + (lanes[i + h] if i + h < 32 else
+                                      lanes[i]) for i in range(32)],
+                         np.float32)
+        h //= 2
+    return lanes[0]
+
+
+def _column_terms(g, used):
+    """A column's term, lane by lane as the kernel forms it: the K
+    clusters' positive gains in index order where the column is used, the
+    literal +0 elsewhere (lanes from V on too)."""
+    K, V = g.shape
+    f32 = np.float32
+    col = np.zeros(32, f32)
+    for v in range(V):
+        s = f32(max(g[0, v], f32(0)))
+        for k in range(1, K):
+            s = f32(s + f32(max(g[k, v], f32(0))))
+        col[v] = s if used[v] else f32(0)
+    return col
+
+
+@pytest.mark.parametrize("K,V", [(2, 1), (2, 5), (2, 8), (4, 8), (2, 9),
+                                 (3, 24)])
+def test_objective_tree_levels_skip_zero_lanes(K, V):
+    """The register form's shuffle tree runs 3 levels up to V 8 (5 above):
+    the levels it skips add the +0 of lanes at and past V, and no column
+    term is -0 (an unused column is the literal +0, a used one holds a
+    positive gain), so the skipped levels change no bit, the sign of a
+    zero included, here with gains of -0.0 planted in the aggregates."""
+    rng = np.random.default_rng(300 + 10 * K + V)
+    lanes, R = 16, 40
+    g, p, n, counts = _aggregates(rng, lanes, K, V, R)
+    g[rng.random(g.shape) < 0.3] = -0.0
+    g[::3, :, ::2] = -0.0   # whole columns of -0.0 gains in some lanes
+    size_lk = torch.tensor(pcl.poisson_size_table(R, R / K, K))[None]
+    got = pcl._objective(g, p, n, counts, size_lk.expand(lanes, -1))
+    used = _used(g, p, n)
+    width = 8 if V <= 8 else 32
+    for ln in range(lanes):
+        col = _column_terms(g[ln].numpy(), used[ln].numpy())
+        assert not np.signbit(col).any()
+        short, full = _tree(col, width), _tree(col, 32)
+        assert short.view(np.int32) == full.view(np.int32)
+        terms = size_lk[0, counts[ln].long()].numpy()
+        size = np.float32(terms[0])
+        for k in range(1, K):
+            size = np.float32(size + np.float32(terms[k]))
+        want = np.float32(short + size)
+        assert got[ln].numpy().view(np.int32) == want.view(np.int32)
+    assert (g == 0).any() and (used.any() or V == 1)
+
+
+def _register_form_block(st, X, size_lk, idx, prop, logu):
+    """The register form of the chain kernel (csrc/mcmc_chain.cu,
+    mcmc_chain_reg) emulated lane by lane in numpy float32 over one draw
+    block, in its own order: the next step's X row and old cluster read a
+    step ahead (the old cluster patched when a step accepts the same read),
+    both moves of each cluster computed and one selected, the column terms
+    by the shuffle tree over 8 lanes up to V 8 (32 above), the cluster
+    sizes as integers.  Returns the state after the block (numpy) and the
+    number of accepted steps."""
+    f32 = np.float32
+    X, size_lk = X.numpy(), size_lk.numpy()
+    idx, prop, logu = idx.numpy(), prop.numpy(), logu.numpy()
+    out = {k: v.numpy().copy() for k, v in st.items()}
+    B, S, K, V = out["agg_gain"].shape
+    R = out["assign"].shape[2]
+    T = idx.shape[0]
+    width = 8 if V <= 8 else 32
+    accepted = 0
+    for b in range(B):
+        for s in range(S):
+            g, p, n = (out[k][b, s].copy() for k in ("agg_gain", "agg_pos",
+                                                      "agg_neg"))
+            c = out["counts"][b, s].astype(np.int64)
+            A = out["assign"][b, s].copy()
+            best_a = out["best_assign"][b, s].copy()
+            cur, best = f32(out["lk"][b, s]), f32(out["best_lk"][b, s])
+            old = int(A[idx[0, b, s]])
+            for t in range(T):
+                i, pr = int(idx[t, b, s]), int(prop[t, b, s])
+                lu = logu[t, b, s]
+                i1 = int(idx[t + 1, b, s]) if t + 1 < T else 0
+                old1 = int(A[i1])          # read a step ahead
+                nw = pr + (pr >= old)
+                x = X[b, i]
+                px = (x > f32(pcl.POS_THR)).astype(f32)
+                nx = (x < f32(-pcl.POS_THR)).astype(f32)
+                gm, ga = g - x, g + x
+                sel = np.arange(K)[:, None]
+                gn = np.where(sel == old, gm, np.where(sel == nw, ga, g))
+                pn = np.where(sel == old, p - px, np.where(sel == nw, p + px,
+                                                           p))
+                qn = np.where(sel == old, n - nx, np.where(sel == nw, n + nx,
+                                                           n))
+                informative = (gn > 0) & (pn > f32(pcl.POS_FRAC) * (
+                    (pn + qn) + f32(1e-7)))
+                piu = np.zeros(V, f32)
+                pin = np.zeros(V, f32)
+                for k in range(K):
+                    piu = np.where(gn[k] > 0, f32(piu + pn[k]), piu)
+                    pin = np.where(gn[k] > 0, pin, f32(pin + pn[k]))
+                used = informative.any(0) & (f32(pin * f32(2)) < piu)
+                gain = _tree(_column_terms(gn, used), width)
+                cn = c + (np.arange(K) == nw) - (np.arange(K) == old)
+                terms = size_lk[b, np.clip(cn, 0, R)]
+                size = f32(terms[0])
+                for k in range(1, K):
+                    size = f32(size + terms[k])
+                lk_new = f32(gain + size)
+                accept = f32(lk_new - cur) > lu
+                if accept:
+                    accepted += 1
+                    g, p, n, c = gn, pn, qn, cn
+                    A[i] = nw
+                    cur = lk_new
+                    if cur > best:
+                        best = cur
+                        best_a = A.copy()
+                old = nw if accept and i1 == i else old1
+            out["agg_gain"][b, s], out["agg_pos"][b, s] = g, p
+            out["agg_neg"][b, s], out["counts"][b, s] = n, c.astype(f32)
+            out["assign"][b, s], out["best_assign"][b, s] = A, best_a
+            out["lk"][b, s], out["best_lk"][b, s] = cur, best
+    return out, accepted
+
+
+@pytest.mark.parametrize("K,V", [(2, 8), (3, 5), (2, 20)])
+def test_register_form_order_matches_plain_chain(K, V):
+    """The register form's order (a numpy emulation of mcmc_chain_reg)
+    gives the plain chain's bits over a draw block: the assignments, the
+    best assignments, lk and best_lk bit for bit, the aggregates and sizes
+    equal (the plain chain adds 0 * x to a cluster the move leaves, which
+    can turn a -0 gain into +0; the kernel leaves it)."""
+    rng = np.random.default_rng(60 + 10 * K + V)
+    B, S, Rmax, T = 2, 3, 24, 300
+    # weak clusters, so that the chain accepts moves
+    X = np.stack([_sim_gain_matrix(rng, Rmax, V, K)[0] for _ in range(B)])
+    X = (0.1 * X + rng.normal(0, 1, X.shape)).astype(np.float32)
+    X[rng.random(X.shape) < 0.2] = 0.0
+    Rs = np.array([Rmax, Rmax - 3], np.int64)
+    X[1, Rs[1]:] = 0
+    size_lk = np.stack([pcl.poisson_size_table(Rmax, Rmax / K, K)] * B)
+    Xt, slt = torch.tensor(X), torch.tensor(size_lk)
+    w = (torch.arange(Rmax)[None] < torch.tensor(Rs)[:, None]).float()
+    gen = torch.Generator().manual_seed(K + V)
+    st = pcl.chain_start(Xt, w, slt, K, pcl._gumbel((B, S, K, Rmax), gen,
+                                                    "cpu"))
+    draws = pcl.block_draws(*pcl.generator_block(gen, (T, B, S), K, "cpu"),
+                            torch.tensor(Rs), Rmax)
+    want, accepted = _register_form_block(st, Xt, slt, *draws)
+    pcl.mcmc_chain_plain(st, Xt, slt, *draws)
+    for name in ("assign", "best_assign", "lk", "best_lk"):
+        got = st[name].numpy()
+        assert got.tobytes() == want[name].astype(got.dtype).tobytes(), name
+    for name in ("agg_gain", "agg_pos", "agg_neg", "counts"):
+        np.testing.assert_array_equal(st[name].numpy(), want[name])
+    assert accepted > 20

@@ -35,10 +35,15 @@ def _built_geometries(dtype=torch.float32):
 
 
 @pytest.mark.parametrize("W", [1, 31, 32, 128, 160, 512, 1024, 1152, 2048,
-                               2049, 2176, 4096])
+                               2049, 2176, 4096, 4097, 8192, 65536])
 def test_tables_geometry_covers_band(W):
     lanes, warps, pairs = pt.tables_geometry(W)
     assert 32 * lanes * warps >= W
+    if W > pt.SHARED_FORM_W:
+        # the scratch form: one block of SCRATCH_THREADS threads a pair
+        assert (32 * warps, pairs) == (pt.SCRATCH_THREADS, 1)
+        assert lanes == -(-W // pt.SCRATCH_THREADS)
+        return
     assert (lanes, warps) in _built_geometries()
     if W > pt.register_form_w():
         # the wide form: the state in shared memory, one pair a block
@@ -54,12 +59,19 @@ def test_tables_geometry_covers_band(W):
     assert pairs >= 1 and warps * pairs == max(4, warps)
 
 
-@pytest.mark.parametrize("W", [1, 128, 256, 1024, 1025, 2048, 2049, 4096])
+@pytest.mark.parametrize("W", [1, 128, 256, 1024, 1025, 2048, 2049, 4096,
+                               4097, 65536])
 def test_float64_tables_geometry_is_built(W):
     """The gradient's float64 tables: the register form up to 1024 lanes
-    (at most 8 warps, so 256 threads a block), the wide form above."""
+    (at most 8 warps, so 256 threads a block), the wide form up to 4096,
+    the scratch form above (as in float32)."""
     lanes, warps, pairs = pt.tables_geometry(W, dtype=torch.float64)
     assert 32 * lanes * warps >= W
+    if W > pt.SHARED_FORM_W:
+        assert (lanes, warps, pairs) == pt.tables_geometry(W)
+        lanes = -(-W // pt.SCRATCH_THREADS) * pt.SCRATCH_THREADS
+        assert pt.scratch_bytes(W, torch.float64) == lanes * 2 * (3 * 8 + 4)
+        return
     assert (lanes, warps) in _built_geometries(torch.float64)
     if W <= 1024:
         assert (lanes, warps, pairs) == pt.tables_geometry(W)
@@ -70,10 +82,18 @@ def test_float64_tables_geometry_is_built(W):
 
 @pytest.mark.parametrize("W", [0, 4097, 8192])
 def test_tables_geometry_rejects_band(W):
-    with pytest.raises(ValueError):
-        pt.tables_geometry(W)
-    with pytest.raises(ValueError):
-        pt.tables_geometry(W, dtype=torch.float64)
+    """Only a band below one lane is refused; 4097 and 8192, past the old
+    limit, take the scratch form in both types."""
+    if W < 1:
+        with pytest.raises(ValueError):
+            pt.tables_geometry(W)
+        with pytest.raises(ValueError):
+            pt.tables_geometry(W, dtype=torch.float64)
+        return
+    for dtype in (torch.float32, torch.float64):
+        lanes, warps, pairs = pt.tables_geometry(W, dtype=dtype)
+        assert (lanes, 32 * warps, pairs) == (
+            -(-W // pt.SCRATCH_THREADS), pt.SCRATCH_THREADS, 1)
 
 
 def test_tables_match_jax_at_band_1152():
