@@ -39,15 +39,29 @@
    select_chunks, pick_top_n_component, estimate/purge multiplicity,
    local_clustering, assemble with contig polishing) on a simulated 60 kb
    diploid region at 60x ONT-like coverage with the pipeline's defaults;
-5. path (b), the main path: ``jtk pipeline -p profile.toml`` through the
-   port's CLI on a fresh 60 kb / 60x region (region_size 60k, chunk 2000,
-   margin 500, seed 42), then a resume rerun from its checkpoints, and one
+5. path (b), the main path: ``jtk pipeline -p profile.toml --devices
+   cuda`` through the port's CLI, on one device, on a fresh 60 kb / 60x
+   region (region_size 60k, chunk 2000, margin 500, seed 42), then a
+   resume rerun from its checkpoints, and one
    more ``dump_sam`` on the rerun's contigs, split into K3's DP, its walk
    and the host by synchronised timers (outside the timed path; its
    launches are not counted); model tuning's counts are checked for pairs
    whose M + I emissions miss their q_len by more than 1 %, each listed
    with how late its read starts in its chunk;
-6. counts every kernel's launches on each path (set to 0 just before it,
+6. path (c): path (b)'s run (same profile and seed, no resume rerun) with
+   the device set of the data-parallel paths (``--devices``) the card
+   listed four times, so every split, per-shard launch and merge runs on
+   one card, and where the host has several cards, over every card once;
+   each must give path (b)'s GFA byte for byte, its fitted HMMs bit for
+   bit, its per-chunk ARI and contig error; launches per kernel and per
+   entry of the set, peak device memory per card and the modtable engine's
+   calls by their number of slices are logged;
+7. the multidevice phase (the twin of ``__graft_entry__.py``'s
+   ``dryrun_multichip``): the train step, the sharded pileup lk, the k-mer
+   histogram, a modtable engine call of three slices and a candidate batch
+   of ``extend_candidates``, each on the card alone and on the card listed
+   four times, compared bit for bit;
+8. counts every kernel's launches on each path (set to 0 just before it,
    read just after; path (a) by stage, path (b) by launch shape (B, Q, W),
    the five most frequent of each kernel), times each kernel at path
    (b)'s three most-launched shapes and K3's DP and walk at every shape
@@ -55,7 +69,7 @@
    the truth bars of tests/test_e2e.py on both (mean ARI > 0.6, mean
    contig error < 0.05, total length > 2/3 of the region for (a) and of
    both haplotypes for (b)), the five checkpoints and the resumed GFA;
-7. prints the kernels line, the card line, then {"ok": true, "device": ...}
+9. prints the kernels line, the card line, then {"ok": true, "device": ...}
    as the last line.  Any failure exits non-zero without the last line.
 
 ``--kernels-only`` stops after step 3 (a quick build-and-check run).  The
@@ -483,8 +497,7 @@ def _tables_case(rng, dev, label, B, W, type_name):
             ("bwd", bwd_args, pt.bwd_tables, pt.bwd_tables_plain)):
         torch.cuda.synchronize()
         got = kern(*args)
-        want = plain(*args)
-        torch.cuda.synchronize()
+        plain_ms, want = timed_once(lambda: plain(*args))
         err = 0.0
         for g, w in zip(got[:3], want[:3]):
             if g.dtype != dtype or not torch.allclose(g, w, rtol=2e-3,
@@ -498,7 +511,6 @@ def _tables_case(rng, dev, label, B, W, type_name):
                                  f"(max {float((cg - cw).abs().max())})")
         err = max(err, float((cg - cw).abs().max()))
         ms = cuda_time(lambda: kern(*args), reps=5)
-        plain_ms = cuda_time(lambda: plain(*args), reps=1, warmup=0)
         moved = nbytes(*args) + nbytes(*got)
         bound_ms, bound_by = roofline(moved, 40.0 * B * Q * W)
         log(f"K1 {kind}_tables {label} B={B} Q={Q} W={W} {type_name}: max "
@@ -651,7 +663,7 @@ def _lk_case(rng, dev, label, short, with_n, tlen=2000):
     args = k1l.lk_inputs(qs, tpl, offs, q_lens, tlen, W, device=dev)
     torch.cuda.synchronize()
     got = k1l.phmm_lk(*args, *tabs)
-    want = k1l.phmm_lk_plain(*args, *tabs)
+    plain_ms, want = timed_once(lambda: k1l.phmm_lk_plain(*args, *tabs))
     others = [(want, "plain")]
     if not with_n:   # the tables prep scores an N as A
         prep = pt.prep_tables_inputs(qs, tpl, offs, q_lens, tlen, params, W,
@@ -671,8 +683,6 @@ def _lk_case(rng, dev, label, short, with_n, tlen=2000):
     ms = cuda_time(lambda: k1l.phmm_lk(*args, *tabs), reps=5)
     dev_ms = device_ms(lambda: k1l.phmm_lk(*args, *tabs))
     dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.3f} ms"
-    plain_ms = cuda_time(lambda: k1l.phmm_lk_plain(*args, *tabs), reps=1,
-                         warmup=0)
     moved = nbytes(*args, *tabs) + got.numel() * 4
     # the loop stops at each pair's q_len: count the rows this data needs
     flops = 40.0 * W * float(q_lens.sum())
@@ -781,8 +791,7 @@ def _counts_case(rng, dev, label, short, tlen=2000, B=40):
     torch.cuda.synchronize()
     got = pg.phmm_counts(*args)
     again = pg.phmm_counts(*args)
-    want = pg.phmm_counts_plain(*args)
-    torch.cuda.synchronize()
+    plain_ms, want = timed_once(lambda: pg.phmm_counts_plain(*args))
     if not torch.allclose(got, want, rtol=1e-3, atol=1e-4):
         raise AssertionError(f"counts {label}: kernel differs from plain "
                              f"(max {float((got - want).abs().max())})")
@@ -796,8 +805,6 @@ def _counts_case(rng, dev, label, short, tlen=2000, B=40):
                              f"to q_len")
     err = float((got - want).abs().max())
     ms = cuda_time(lambda: pg.phmm_counts(*args), reps=5)
-    plain_ms = cuda_time(lambda: pg.phmm_counts_plain(*args), reps=1,
-                         warmup=0)
     moved = nbytes(*args) + got.numel() * 4
     flops = 60.0 * W * float((q_lens + 1).sum())
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
@@ -1268,15 +1275,16 @@ def run_slice(rng, counters):
                 stage_launches=stage_launches)
 
 
-def run_pipeline_path(rng):
+def run_pipeline_path(rng, keep="pipeline", resume=True, devices=None):
     """Path (b): the user's entry point, ``jtk pipeline -p profile.toml``
-    through the port's CLI, on a fresh simulated region; then a resume
-    rerun from the checkpoints."""
+    through the port's CLI, on a fresh simulated region; then (``resume``)
+    a resume rerun from the checkpoints.  Path (c) is the same run without
+    the rerun, on the device set ``devices`` (the CLI's ``--devices``)."""
     # the checkpoints (tens of MB each) stay in a temporary directory; the
     # GFA, the timings and the log are copied beside the other outputs
     with tempfile.TemporaryDirectory(prefix="jtk_pipe_") as out:
-        res = _pipeline_in(rng, out)
-        keep = os.path.join(OUT_DIR, "pipeline")
+        res = _pipeline_in(rng, out, resume, devices)
+        keep = os.path.join(OUT_DIR, keep)
         os.makedirs(keep, exist_ok=True)
         for fn in ("pipe.gfa", "pipe.timings.tsv", "pipeline.log",
                    "profile.toml"):
@@ -1285,7 +1293,7 @@ def run_pipeline_path(rng):
     return res
 
 
-def _pipeline_in(rng, out):
+def _pipeline_in(rng, out, resume=True, devices=None):
     import numpy as np
 
     from jtk_tpu_torch import cli
@@ -1319,13 +1327,17 @@ def _pipeline_in(rng, out):
     root.setLevel(logging.INFO)
     stem = os.path.join(out, "pipe")
     write_profile(False)
+    argv = ["pipeline", "-p", profile]
+    if devices:
+        argv += ["--devices", ",".join(devices)]
     t0 = time.time()
     with EmissionCheck() as emissions:   # model tuning's counts
-        cli.main(["pipeline", "-p", profile])
+        cli.main(argv)
     wall = time.time() - t0
-    log(f"path (b) cli pipeline: {wall:.1f} s")
+    name = "path (c)" if devices and len(devices) > 1 else "path (b)"
+    log(f"{name} cli pipeline: {wall:.1f} s")
     emis = emissions.result()
-    log(f"path (b) model tuning: {emis['pairs_off']} of {emis['pairs']} "
+    log(f"{name} model tuning: {emis['pairs_off']} of {emis['pairs']} "
         f"pairs (over {emis['calls']} counts launches, "
         f"{emis['calls_with_off']} with any) emit M + I more than 1 % off "
         f"their q_len; worst relative difference {emis['worst_rel']}; "
@@ -1365,6 +1377,16 @@ def _pipeline_in(rng, out):
             mat_emit_diag=[hp.mat_emit[5 * i] for i in range(4)])
     root.removeHandler(handler)
     handler.close()
+    res = dict(n_reads=len(reads), wall_s=wall, phases_s=phases,
+               chunks=len(ds.selected_chunks), phased_chunks=len(aris),
+               aris=aris,
+               mean_ari=float(np.mean(aris)) if aris else float("nan"),
+               contigs=len(m["contigs"]), total_len=int(m["total_len"]),
+               mean_error=float(m["mean_error"]), missing=missing, hmm=hmm,
+               model_param=ds.model_param.to_json(), gfa=gfa,
+               emissions=emis)
+    if not resume:
+        return res
     # resume: every phase checkpoint exists, so only assemble runs again
     os.remove(f"{stem}.gfa")
     write_profile(True)
@@ -1378,18 +1400,207 @@ def _pipeline_in(rng, out):
     consensus.dump_sam = keep_args
     try:
         t0 = time.time()
-        cli.main(["pipeline", "-p", profile])
+        cli.main(argv)
         resume_s = time.time() - t0
     finally:
         consensus.dump_sam = dump_sam
     split = dump_sam_split(*seen[-1], out) if seen else None
-    return dict(n_reads=len(reads), wall_s=wall, phases_s=phases,
-                chunks=len(ds.selected_chunks), phased_chunks=len(aris),
-                mean_ari=float(np.mean(aris)) if aris else float("nan"),
-                contigs=len(m["contigs"]), total_len=int(m["total_len"]),
-                mean_error=float(m["mean_error"]), missing=missing,
-                resumed=os.path.exists(f"{stem}.gfa"), resume_s=resume_s,
-                hmm=hmm, emissions=emis, dump_sam_split=split)
+    return dict(res, resumed=os.path.exists(f"{stem}.gfa"),
+                resume_s=resume_s, dump_sam_split=split)
+
+
+# ---------------------------------------------------------------------------
+# the device set: path (c) and the multidevice phase
+# ---------------------------------------------------------------------------
+
+
+def _extend_batch(rng, n_reads=256, per_read=8, clen=2000, margin=200):
+    """The mapper's candidate batch (B 2048 at its production chunk length
+    and band): reads of a noisy chunk copy between random flanks, on
+    either strand, each with a candidate for its chunk and ``per_read`` - 1
+    for other chunks."""
+    import numpy as np
+
+    from jtk_tpu_torch import seq as seqmod
+    from jtk_tpu_torch.io import sim
+    from jtk_tpu_torch.mapper import Candidate
+
+    chunks = {c: sim.random_genome(rng, clen) for c in range(32)}
+    reads, cands = [], []
+    for i in range(n_reads):
+        c, fwd = i % 32, bool(i % 3)
+        left = int(rng.integers(200, 400))
+        body = sim.noisy_read(rng, chunks[c], 0.05)
+        read = np.concatenate([sim.random_genome(rng, left), body,
+                               sim.random_genome(rng, 300)]).astype(np.int8)
+        start = left if fwd else len(read) - left - len(body)
+        reads.append(read if fwd else seqmod.revcomp(read))
+        cands.append(Candidate(i, c, fwd, start - margin, clen + 2 * margin,
+                               40))
+        for j in range(1, per_read):
+            cands.append(Candidate(i, (c + j) % 32, fwd, start - margin,
+                                   clen + 2 * margin, 3))
+    return cands, reads, chunks, margin
+
+
+def multidevice_phase(rng, n=4, dev="cuda"):
+    """The twin of ``__graft_entry__.py::dryrun_multichip`` at the main
+    path's shapes: the train step (10 steps, model tuning's B 40 / W 128),
+    the sharded pileup lk, the k-mer histogram (path (b)'s ~3.6 M k-mers,
+    k 12), one modtable engine call of 3 slices (polish's B 192 / W 128
+    slices, gains reduced on the device) and one ``extend_candidates``
+    batch (B 2048, W 256), each on the card alone and on the card listed
+    ``n`` times (``dev``), compared bit for bit.  Returns (failures,
+    record)."""
+    import numpy as np
+    import torch
+
+    from jtk_tpu_torch import parallel as par
+    from jtk_tpu_torch.mapper import extend_candidates
+    from jtk_tpu_torch.ops import modtable as mt
+    from jtk_tpu_torch.ops import phmm_grad as pg
+    from jtk_tpu_torch.ops.phmm import PHMMParams
+    from jtk_tpu_torch.runtime import use_devices
+
+    tpl, qs, offs, q_lens, W = _pileup_pairs(rng, 40, 2000, 64, 128)
+    wts = np.ones(len(qs), np.float32)
+    kmers = rng.integers(0, 4 ** 12, 3_600_000)
+    mtpl, mqs, moffs, mql, mW = _pileup_pairs(rng, 400, 2000, 64, 128)
+    ext = _extend_batch(rng)
+
+    def train():
+        batch = pg.PairBatch(qs, tpl, offs, q_lens, len(tpl), W)
+        theta = par.params_to_theta(PHMMParams.default())
+        theta, losses = par.make_train_steps(W)(
+            theta, batch, torch.as_tensor(wts, device=dev))
+        return [theta[k] for k in par.KEYS] + [losses]
+
+    def modtable():
+        return list(mt.modification_table_pileup_pallas(
+            mqs, mtpl, moffs, mql, np.int32(len(mtpl)), PHMMParams.default(),
+            mW, len(mtpl), seg_ids=np.zeros(len(mqs), np.int32), n_seg=1,
+            finish=False))
+
+    def extend():
+        cands, reads, chunks, margin = ext
+        res = extend_candidates(cands, reads, chunks, W=256, margin=margin)
+        return [[r["dist"], r["ops"], r["span_start"], r["span_end"]]
+                for r in res]
+
+    calls = {
+        "train_steps": train,
+        "pileup_lk": lambda: par.make_sharded_pileup_lk(W)(
+            qs, tpl, offs, q_lens, len(tpl)),
+        "kmer_hist": lambda: par.make_sharded_kmer_hist(4 ** 12)(kmers),
+        "modtable_3_slices": modtable,
+        "extend_candidates": extend,
+    }
+    counters = launch_counters()
+    multi = sum(v for k, v in mt.SLICE_CALLS.items() if k >= 3)
+    out, record = {}, {}
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    for devs in ([dev], [dev] * n):
+        for name, fn in calls.items():
+            for c in counters:
+                c.reset()
+            with use_devices(devs):
+                sync()
+                t0 = time.perf_counter()
+                got = fn()
+                sync()
+                sec = time.perf_counter() - t0
+            out[name, len(devs)] = got
+            record[f"{name} x{len(devs)}"] = dict(
+                s=sec, launches_by_entry={
+                    c.name: dict(c.entries) for c in counters if c.count})
+    failures = []
+
+    def same(a, b):
+        if isinstance(a, torch.Tensor):
+            return a.dtype == b.dtype and torch.equal(a, b.to(a.device))
+        if isinstance(a, np.ndarray):
+            return a.dtype == b.dtype and np.array_equal(a, b)
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(map(same, a, b))
+        return a == b
+
+    for name in calls:
+        ok = same(out[name, 1], out[name, n])
+        record[f"{name} x{n}"]["bit_identical"] = ok
+        log(f"multidevice {name}: card x1 {record[f'{name} x1']['s']:.3f} s,"
+            f" card x{n} {record[f'{name} x{n}']['s']:.3f} s, launches by "
+            f"entry {record[f'{name} x{n}']['launches_by_entry']}; "
+            f"{'bit-identical' if ok else 'DIFFERENT'}")
+        if not ok:
+            failures.append(f"multidevice {name}: card x{n} differs from "
+                            "card x1")
+    hist = out["kmer_hist", 1].cpu().numpy()
+    if not np.array_equal(hist, np.bincount(kmers, minlength=4 ** 12)):
+        failures.append("multidevice kmer_hist differs from np.bincount")
+    if sum(v for k, v in mt.SLICE_CALLS.items() if k >= 3) - multi < 2:
+        failures.append("multidevice modtable call did not cut 3 slices")
+    return failures, record
+
+
+def compare_paths(b, c, name):
+    """Failures where path ``name`` differs from path (b): the GFA byte for
+    byte, the fitted HMMs of both strands bit for bit, the per-chunk ARI
+    and the contig error (``gfa`` is the GFA's text)."""
+    out = []
+    if c["gfa"] != b["gfa"]:
+        out.append(f"{name}: GFA differs from path (b)'s")
+    if c["model_param"] != b["model_param"]:
+        out.append(f"{name}: fitted HMMs differ from path (b)'s")
+    for key in ("aris", "mean_error", "contigs", "total_len", "chunks"):
+        if c[key] != b[key]:
+            out.append(f"{name}: {key} {c[key]} != path (b)'s {b[key]}")
+    return out
+
+
+def cross_card_paths():
+    """On a host with several cards: path (b) on ``cuda:0`` and path (c)
+    over every card, in turns b, c, c, b, each (c) held against the first
+    (b); prints the comparisons and one JSON line of walls, phases,
+    launches by entry and peak memory by card.  Run it as ``python3 -c
+    "import chip_smoke; chip_smoke.cross_card_paths()"``."""
+    import numpy as np
+    import torch
+
+    from jtk_tpu_torch.runtime import set_device
+    from jtk_tpu_torch.stages import likelihood_gains
+    set_device("cuda")
+    torch.cuda.init()   # the peak-memory resets need the allocator
+    cards = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    res, out = {}, []
+    for name, devs in (("b", ["cuda:0"]), ("c", cards), ("c2", cards),
+                       ("b2", ["cuda:0"])):
+        likelihood_gains._GAINS_CACHE.clear()
+        counters = launch_counters()
+        for x in counters:
+            x.reset()
+        for i in range(len(cards)):
+            torch.cuda.reset_peak_memory_stats(i)
+        r = run_pipeline_path(np.random.default_rng(SEED + 2), "x4_" + name,
+                              False, devs)
+        r["launches_by_entry"] = {x.name: dict(x.entries) for x in counters}
+        r["peak_gib"] = peak_memory_by_device(cards)
+        res[name] = r
+        out.append(dict(name=name, devices=devs, wall_s=r["wall_s"],
+                        phases_s=r["phases_s"],
+                        launches_by_entry=r["launches_by_entry"],
+                        peak_gib=r["peak_gib"]))
+    for n in ("c", "c2", "b2"):
+        print(n, "against b:", compare_paths(res["b"], res[n], n)
+              or "identical")
+    print(json.dumps(out))
+
+
+def peak_memory_by_device(devs) -> dict:
+    """Peak device memory (GiB) of each card in ``devs``."""
+    import torch
+    idx = sorted({torch.device(d).index or 0 for d in devs})
+    return {f"cuda:{i}": torch.cuda.max_memory_allocated(i) / 2 ** 30
+            for i in idx}
 
 
 # ---------------------------------------------------------------------------
@@ -1620,14 +1831,15 @@ class EmissionCheck:
             return dict(calls=0, pairs=0, pairs_off=0, calls_with_off=0,
                         worst_rel=None, off_start_late_end_early=[],
                         off_within_150=0)
-        off = torch.stack(self.off).cpu()
-        where = torch.cat(self.where).cpu()
+        # the launches may have run on several cards
+        off = torch.stack([x.cpu() for x in self.off])
+        where = torch.cat([x.cpu() for x in self.where])
         where = sorted(tuple(int(x) for x in w) for w in where
                        if int(w[0]) >= 0)
         return dict(calls=self.calls, pairs=self.pairs,
                     pairs_off=int(off.sum()),
                     calls_with_off=int((off > 0).sum()),
-                    worst_rel=float(torch.stack(self.worst).max()),
+                    worst_rel=max(float(x) for x in self.worst),
                     off_start_late_end_early=where,
                     off_within_150=sum(s <= 150 for s, _e in where))
 
@@ -1655,7 +1867,8 @@ def dump_sam_split(ds, contigs, out):
             return r
         return call
 
-    snap = [(c.count, c.shapes.copy()) for c in launch_counters()]
+    snap = [(c.count, c.shapes.copy(), c.entries.copy())
+            for c in launch_counters()]
     for n in spent:
         setattr(k3, n, timed(n))
     try:
@@ -1667,8 +1880,8 @@ def dump_sam_split(ds, contigs, out):
     finally:
         for n, f in orig.items():
             setattr(k3, n, f)
-        for c, (n, shapes) in zip(launch_counters(), snap):
-            c.count, c.shapes = n, shapes
+        for c, (n, shapes, entries) in zip(launch_counters(), snap):
+            c.count, c.shapes, c.entries = n, shapes, entries
     res = dict(total_s=total, k3_dp_s=spent["edit_dp"],
                walk_s=spent["traceback_packed"],
                host_s=total - sum(spent.values()))
@@ -1798,9 +2011,13 @@ def main() -> int:
     for c in counters:
         c.reset()
     torch.cuda.reset_peak_memory_stats()
-    res_b = run_pipeline_path(np.random.default_rng(SEED + 2))
+    # one device (``--devices cuda``, also on a host with several cards):
+    # the reference path (c) is held against
+    res_b = run_pipeline_path(np.random.default_rng(SEED + 2),
+                              devices=["cuda"])
     launches_b = [c.count for c in counters]
     shapes_b = {c.name: c.shapes.copy() for c in counters}
+    gfa_b = res_b.pop("gfa")
     log("path (b) pipeline: " + json.dumps(res_b))
     log(f"path (b) peak device memory: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1819,6 +2036,52 @@ def main() -> int:
     for strand, h in res_b["hmm"].items():
         log(f"fitted {strand} HMM: trans {h['trans']}, mat_emit diagonal "
             f"{h['mat_emit_diag']}")
+    torch.cuda.empty_cache()
+    # path (c): path (b)'s run on the card listed four times (every split,
+    # per-shard launch and merge of the sharded paths, on one card), and
+    # over every card where there are several; no resume rerun
+    from jtk_tpu_torch.ops import modtable as mt
+    sets = [["cuda"] * 4]
+    if torch.cuda.device_count() > 1:
+        sets.append([f"cuda:{i}" for i in range(torch.cuda.device_count())])
+    res_c, path_failures = [], []
+    from jtk_tpu_torch.stages import likelihood_gains
+    for devs in sets:
+        name = f"path (c) {'+'.join(devs)}"
+        # the gain calibration is cached in the process: path (c) redoes
+        # path (b)'s
+        likelihood_gains._GAINS_CACHE.clear()
+        for c in counters:
+            c.reset()
+        mt.SLICE_CALLS.clear()
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.reset_peak_memory_stats(i)
+        r = run_pipeline_path(np.random.default_rng(SEED + 2),
+                              keep=f"pipeline_c{len(res_c)}", resume=False,
+                              devices=devs)
+        r.update(devices=devs, launches={c.name: c.count for c in counters},
+                 launches_by_entry={c.name: dict(sorted(c.entries.items()))
+                                    for c in counters},
+                 peak_gib_by_device=peak_memory_by_device(devs),
+                 modtable_calls_by_slices=dict(sorted(mt.SLICE_CALLS.items())))
+        path_failures += compare_paths(dict(res_b, gfa=gfa_b), r, name)
+        path_failures += [f"{name}: {k} never launched"
+                          for k, v in r["launches"].items() if v == 0]
+        r["gfa_identical"] = r.pop("gfa") == gfa_b
+        log(f"{name}: " + json.dumps(r))
+        log(f"{name} launches (path (b)'s in brackets): " + ", ".join(
+            f"{c.name}={r['launches'][c.name]} ({n})"
+            for c, n in zip(counters, launches_b)))
+        log(f"{name} launches by entry of the device set: "
+            + json.dumps(r["launches_by_entry"]))
+        log(f"{name} peak device memory by card (GiB): "
+            + json.dumps(r["peak_gib_by_device"]))
+        log(f"{name} modtable engine calls by their number of slices: "
+            + json.dumps(r["modtable_calls_by_slices"]))
+        res_c.append(r)
+        torch.cuda.empty_cache()
+    md_failures, res_md = multidevice_phase(np.random.default_rng(SEED + 4))
+    path_failures += md_failures
     for row, na, nb in zip(rows, launches_a, launches_b):
         row["launches"] = nb
         row["launches_slice"] = na
@@ -1832,6 +2095,7 @@ def main() -> int:
                  if r["launches_slice"] == 0
                  and r["name"] != "phmm_counts (lk gradient)"]
     failures += spills
+    failures += path_failures
     failures += truth_failures("path (a)", res_a, 2 * REGION / 3)
     failures += truth_failures("path (b)", res_b, 2 * 2 * REGION / 3)
     if res_b["missing"]:
@@ -1847,8 +2111,8 @@ def main() -> int:
     kernels = [{k: r[k] for k in keys} for r in rows]
     with open(os.path.join(OUT_DIR, "result.json"), "w") as f:
         json.dump(dict(card=card, kernels=rows, slice=res_a,
-                       pipeline=res_b, total_s=time.time() - t_all), f,
-                  indent=1)
+                       pipeline=res_b, path_c=res_c, multidevice=res_md,
+                       total_s=time.time() - t_all), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

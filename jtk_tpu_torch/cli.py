@@ -7,9 +7,13 @@ and writes it on stdout, making the pipeline a shell-composable chain
 
 Counterpart of ``jtk_tpu/cli.py`` with the same subcommands and arguments,
 plus ``--device`` on every subcommand (default ``cuda``; ``--device cpu``
-runs the plain PyTorch versions of the kernels)::
+runs the plain PyTorch versions of the kernels) and ``--devices``, the
+device set of the data-parallel paths (comma-separated, an entry may
+repeat; default every visible GPU when the device is cuda;
+``--devices cuda`` keeps a multi-GPU host on one card)::
 
     python -m jtk_tpu_torch.cli pipeline -p profile.toml [--device cpu]
+    python -m jtk_tpu_torch.cli pipeline -p profile.toml --devices cuda:0,cuda:1
 
 Defaults mirror the reference (jtk_commands.rs: chunk_len 2000 :100,
 take_num 500 :108, margin 500 :116, exclude 0.8 :131, purge_copy_num 10 :140,
@@ -128,16 +132,21 @@ def build_parser() -> argparse.ArgumentParser:
     for sp in sub.choices.values():
         sp.add_argument("--device", default="cuda",
                         help="device of the device work (cuda or cpu)")
+        sp.add_argument("--devices", default=None,
+                        help="comma-separated device set of the "
+                        "data-parallel paths, primary first (default: "
+                        "every visible GPU when the device is cuda)")
     return p
 
 
 def main(argv=None):
-    from .runtime import use_device
+    from .runtime import use_device, use_devices
     args = build_parser().parse_args(argv)
     level = [logging.WARNING, logging.INFO, logging.DEBUG][min(args.verbose, 2)]
     logging.basicConfig(level=level, stream=sys.stderr,
                         format="%(levelname)s %(name)s: %(message)s")
-    with use_device(args.device):
+    with (use_devices(args.devices.split(",")) if args.devices
+          else use_device(args.device)):
         _dispatch(args)
 
 

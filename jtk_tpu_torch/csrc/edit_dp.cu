@@ -957,15 +957,14 @@ edit_tb_kernel(const Cell* __restrict__ packed,
 // need; NG 0 (direct loads) where two slots do not fit a block.  With 4
 // or more pairs an SM the copies go by cp.async, not TMA (``bulk`` 0), and
 // rows wider than two windows by windows of TB_WINDOW cells (``win``).
+// The SM count is the current device's, read at every launch: a process
+// may launch on several cards.
 void tb_ring(int B, int Q, int W, int cell, int& NG, int& G, int& bulk,
              int& win) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 1;
-  }
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (sms <= 0) sms = 1;
   const int per_sm = min(32, (B + sms - 1) / sms);
   bulk = per_sm < 4;
   win = !bulk && W >= 2 * TB_WINDOW ? TB_WINDOW : 0;

@@ -329,6 +329,12 @@ def extend_candidates(cands: list[Candidate], read_codes: list[np.ndarray],
     """Verify candidates with the K3 kernel: chunk globally aligned inside the
     read window (free window ends).  Returns per-candidate dicts with
     dist, cigar (chunk-as-query), window span, and strand-coord positions.
+
+    The chunk blob is copied to every entry of the device set
+    (:func:`jtk_tpu_torch.runtime.devices`) once a call, and each batch's
+    candidates are cut over the set (K3 and its walk run per shard), the
+    results gathered in candidate order: integer work, the same at any
+    device count.
     """
     if not cands:
         return []
@@ -337,11 +343,12 @@ def extend_candidates(cands: list[Candidate], read_codes: list[np.ndarray],
 
     import torch
 
-    from ..ops.edit_dp import extend_hostwin
-    from ..runtime import device
+    from ..ops.edit_dp import extend_hostwin_packed, to_host
+    from ..parallel import gather, on_entry, replicate, shard_bounds
+    from ..runtime import devices
     _logger = logging.getLogger(__name__)
     _t0 = _time.time()
-    dev = device()
+    devs = devices()
     cid_list = sorted(chunk_seqs)
     cidx_of = {cid: i for i, cid in enumerate(cid_list)}
     # the DP runs over Qpad rows (at least 2048: the production chunk
@@ -355,8 +362,9 @@ def extend_candidates(cands: list[Candidate], read_codes: list[np.ndarray],
         s = chunk_seqs[cid]
         chunks_blob[i, :len(s)] = s
         chunk_lens[i] = len(s)
-    dev_blob = torch.as_tensor(chunks_blob, dtype=torch.int32, device=dev)
-    dev_lens = torch.as_tensor(chunk_lens, dtype=torch.int64, device=dev)
+    dev_blob, dev_lens = replicate(
+        devs, torch.as_tensor(chunks_blob, dtype=torch.int32),
+        torch.as_tensor(chunk_lens, dtype=torch.int64))
     # flat [fwd reads | rc reads] blob for the vectorized window gather:
     # one clip-mode np.take builds every window row.  RC coordinates match
     # the candidate sweep's (window_start is emitted in RC-read coords for
@@ -398,9 +406,17 @@ def extend_candidates(cands: list[Candidate], read_codes: list[np.ndarray],
         rows[has_n] = 0
         cc = np.array([cidx_of[c.chunk_id] for c in grp], np.int64)
         t_lens = np.maximum(wlen, 1)
-        meta, ops_packed, delpack = extend_hostwin(
-            dev_blob, dev_lens, cc, rows, ws_a, a_a, t_lens, W, Qpad, Tpad,
-            margin, device=dev)
+        parts = []
+        for i, (a, b) in enumerate(shard_bounds(B, len(devs))):
+            if a == b:
+                continue
+            with on_entry(i):
+                parts.append(extend_hostwin_packed(
+                    dev_blob[i], dev_lens[i], cc[a:b], rows[a:b], ws_a[a:b],
+                    a_a[a:b], t_lens[a:b], W, Qpad, Tpad, margin,
+                    device=devs[i]))
+        meta, ops_packed, delpack = to_host(
+            *(gather([p[n] for p in parts], devs[0]) for n in range(3)))
         q_lens = [len(chunk_seqs[c.chunk_id]) for c in grp]
         decoded = decode_indexed(meta, ops_packed, delpack, q_lens)
         for c, (score, sj, ej, cigar, valid) in zip(grp, decoded):

@@ -290,7 +290,7 @@ def mcmc_chain(st, X, size_lk, idx, prop, logu, general: bool = False):
             (st["counts"], "counts", f32, (B, S, K)),
             (st["lk"], "lk", f32, (B, S)),
             (st["best_lk"], "best_lk", f32, (B, S))):
-        check(t, dt, shape, f"mcmc_chain {name}")
+        check(t, dt, shape, f"mcmc_chain {name}", device=X.device)
     launch("mcmc_chain", "mcmc_chain_launch", X, size_lk, idx32, prop32,
            logu, st["assign"], st["best_assign"], st["agg_gain"],
            st["agg_pos"], st["agg_neg"], st["counts"], st["lk"],

@@ -6,15 +6,18 @@ build at first use into the package's git-ignored ``_build/cuda``
 directory, keyed by a hash of the sources, so a changed source rebuilds.
 :func:`build` starts one ``nvcc`` per source, all at once.
 
-Every launch goes on PyTorch's current stream; each C entry point returns
-``cudaGetLastError()``, or a negative code of its own checks (such as a
-launch geometry it was not built for), and :func:`launch` raises when it
-is not 0.
+Every launch goes on the device of its tensor arguments, which must all lie
+on one CUDA device, and on PyTorch's current stream of that device (a
+sharded path launches on each device of its set in turn); each C entry
+point returns ``cudaGetLastError()``, or a negative code of its own checks
+(such as a launch geometry it was not built for), and :func:`launch`
+raises when it is not 0.
 """
 
 from __future__ import annotations
 
 import collections
+import contextvars
 import ctypes
 import hashlib
 import os
@@ -35,25 +38,32 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 # ptxas register/shared-memory report of each build (for the chip log)
 BUILD_LOG: dict[str, str] = {}
+# the entry of the device set whose shard is running (``parallel.on_entry``
+# sets it around each shard's work; 0, the primary, elsewhere)
+ENTRY: contextvars.ContextVar = contextvars.ContextVar("entry", default=0)
 
 
 class Launches:
     """Launch counter of one kernel wrapper: :meth:`add` is called where the
     wrapper launches its kernel, and nowhere else.  ``count`` is the number
-    of launches, ``shapes`` counts them by launch shape."""
+    of launches, ``shapes`` counts them by launch shape and ``entries`` by
+    the entry of the device set (:data:`ENTRY`) they ran for."""
 
     def __init__(self, name: str):
         self.name = name
         self.count = 0
         self.shapes: collections.Counter = collections.Counter()
+        self.entries: collections.Counter = collections.Counter()
 
     def add(self, shape: tuple) -> None:
         self.count += 1
         self.shapes[shape] += 1
+        self.entries[ENTRY.get()] += 1
 
     def reset(self) -> None:
         self.count = 0
         self.shapes.clear()
+        self.entries.clear()
 
 
 def nvcc() -> str:
@@ -125,23 +135,35 @@ def _arg(x):
 
 def launch(name: str, fn: str, *args) -> None:
     """Call C entry point ``fn`` of library ``name`` with tensors (passed
-    as device pointers) and ints, on the current stream; raise on a CUDA
-    error code."""
+    as device pointers) and ints, on the tensors' device and its current
+    stream; raise where the tensors lie on more than one device or not on
+    a CUDA device, and on a CUDA error code."""
+    devs = {a.device for a in args if isinstance(a, torch.Tensor)}
+    if len(devs) != 1 or next(iter(devs)).type != "cuda":
+        raise ValueError(f"{fn}: a launch takes tensors of one CUDA device, "
+                         f"got {sorted(str(d) for d in devs)}")
+    dev = devs.pop()
     f = getattr(library(name), fn)
     cargs = [_arg(a) for a in args]
-    cargs.append(ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    f.argtypes = [type(a) for a in cargs]
-    f.restype = ctypes.c_int
-    err = f(*cargs)
+    with torch.cuda.device(dev):
+        cargs.append(ctypes.c_void_p(torch.cuda.current_stream(dev)
+                                     .cuda_stream))
+        f.argtypes = [type(a) for a in cargs]
+        f.restype = ctypes.c_int
+        err = f(*cargs)
     if err != 0:
         what = "CUDA error" if err > 0 else "entry point error"
         raise RuntimeError(f"{fn} failed with {what} {err}")
 
 
-def check(t: torch.Tensor, dtype, shape, name: str) -> None:
-    """Validate one kernel argument: CUDA device, dtype, shape, contiguity."""
+def check(t: torch.Tensor, dtype, shape, name: str, device=None) -> None:
+    """Validate one kernel argument: CUDA device (``device``, the launch's,
+    where given), dtype, shape, contiguity."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: expected a tensor on {device} (the "
+                         f"launch's device), got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):

@@ -161,7 +161,7 @@ def edit_dp(e0, qs, shifts, inc, rc0, j0, qlen, tlen):
                            (j0, "j0", (B, W)), (qs, "qs", (B, Q)),
                            (shifts, "shifts", (B, Q)), (inc, "inc", (B, Q)),
                            (qlen, "qlen", (B,)), (tlen, "tlen", (B,))):
-        check(t, torch.int32, shape, name)
+        check(t, torch.int32, shape, name, device=e0.device)
     # the kernel stops at each pair's q_len: rows past it stay unwritten
     out = _stream(Q, B, W, e0.device)
     if Q == 0:
@@ -233,7 +233,7 @@ def traceback_packed(packed, off, q_len, end_j, W: int):
     ej = end_j.to(torch.int64).contiguous()
     for t, name, shape in ((off, "off", (B, Q + 1)), (ql, "q_len", (B,)),
                            (ej, "end_j", (B,))):
-        check(t, t.dtype, shape, name)
+        check(t, t.dtype, shape, name, device=packed.device)
     dels = torch.empty((B, Q), dtype=torch.int32, device=packed.device)
     ops = torch.empty((B, Q), dtype=torch.uint8, device=packed.device)
     start = torch.empty((B,), dtype=torch.int64, device=packed.device)
@@ -362,6 +362,17 @@ def extend_hostwin(chunks_blob, chunk_lens, cand_chunk, rs, wstart, astart,
     ``pallas_k3.pallas_extend_hostwin`` with unpacked (B, Tpad) window
     codes ``rs``.  Returns numpy (meta (B, 6), ops_packed, delpack) with
     meta = [score, end_j, start_j, n_runs, valid, astart]."""
+    return to_host(*extend_hostwin_packed(
+        chunks_blob, chunk_lens, cand_chunk, rs, wstart, astart, t_lens, W,
+        Qpad, Tpad, margin, device=device))
+
+
+def extend_hostwin_packed(chunks_blob, chunk_lens, cand_chunk, rs, wstart,
+                          astart, t_lens, W: int, Qpad: int, Tpad: int,
+                          margin: int, device=None):
+    """:func:`extend_hostwin`'s results as tensors on ``device`` (default:
+    the blob's, else the current device), read back nowhere: a shard of a
+    candidate batch."""
     from ..runtime import resolve
     dev = resolve(device) if device is not None else (
         chunks_blob.device if isinstance(chunks_blob, torch.Tensor)
@@ -387,4 +398,4 @@ def extend_hostwin(chunks_blob, chunk_lens, cand_chunk, rs, wstart, astart,
     score, end_j, start_j, dels, ops = k3_batch(q, rs, off, q_lens, tl, W,
                                                 "infix")
     valid = tl >= q_lens // 2
-    return to_host(*pack_results(score, end_j, start_j, dels, ops, valid, a))
+    return pack_results(score, end_j, start_j, dels, ops, valid, a)

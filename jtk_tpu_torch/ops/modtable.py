@@ -12,17 +12,25 @@ Output layout per pair: (Tpad+1, 14) with columns
 sub/del/copy at template position j and ins-before-position j.
 Copy edits of length >= 2 drop query insertions between the copied columns
 — the reference's deliberate approximation, kept as is.
+
+The two engines run their pair slices (:func:`_slices`) over the device set
+(:func:`jtk_tpu_torch.runtime.devices`): slice i on entry i mod n, each
+whole, so every launch has the shape it has on one device, and the
+per-slice results are merged on the primary in slice order, as one device
+merges them.  (``jtk_tpu`` splits the rows inside a slice instead; in the
+port that would change the launches' batch sizes with the device count.)
 """
 
 from __future__ import annotations
 
+import collections
 import logging
 import time
 
 import numpy as np
 import torch
 
-from .phmm import EPS
+from .phmm import EPS, PHMMParams, _np
 from .phmm_tables import prep_tables_inputs, tables_batch
 
 logger = logging.getLogger(__name__)
@@ -32,6 +40,8 @@ DEL_SIZE = 3
 NUM_EDIT = 8 + COPY_SIZE + DEL_SIZE  # 4 sub + 4 ins + copies + dels = 14
 MAXB = 192           # pairs per fused slice at W <= 256
 POS_THR_DEV = 1e-5   # == ops.cluster.POS_THR (variant-support threshold)
+# engine calls by their number of slices (how many could use a device set)
+SLICE_CALLS: collections.Counter = collections.Counter()
 
 
 def _shl2(tab, fill=0.0):
@@ -260,12 +270,13 @@ def modification_table_from_tables(q, offsets, q_len, t_len, trans, mat_emit,
 
 
 def _modtable_slice(qs, tpl, offs, q_lens, t_len, params, W: int, Tpad: int,
-                    strands, params_rev):
-    """Both table passes + the assembly for one slice of pairs, with
-    per-pair strand-selected parameters (reverse-strand reads are scored
-    with the reverse-strand HMM)."""
+                    strands, params_rev, device=None):
+    """Both table passes + the assembly for one slice of pairs on
+    ``device``, with per-pair strand-selected parameters (reverse-strand
+    reads are scored with the reverse-strand HMM)."""
     prep = prep_tables_inputs(qs, tpl, offs, q_lens, t_len, params, W,
-                              strands=strands, params_rev=params_rev)
+                              strands=strands, params_rev=params_rev,
+                              device=device)
     lk, f_tabs, fcum, rcs, b_tabs, bcum, offs_t = tables_batch(prep, W)
     sf = prep["strand"].to(torch.float32)[:, None, None]
     trans_b = (1.0 - sf) * prep["trans"][:3, :3] + sf * prep["trans2"][:3, :3]
@@ -289,6 +300,23 @@ def _slice_inputs(tpl, t_len, strands, sl):
     return tpl_s, tl_s, st_s
 
 
+def _host_params(p):
+    """PHMMParams as numpy tables (read back once, not in a slice's prep)."""
+    return None if p is None else PHMMParams(*(_np(x) for x in p))
+
+
+def _device_slices(n: int, W: int):
+    """The primary and (entry, device, slice) of each pair slice, slice i
+    on entry i mod the device set's size; counts the call in
+    SLICE_CALLS."""
+    from ..runtime import devices
+    devs = devices()
+    slices = _slices(n, W)
+    SLICE_CALLS[len(slices)] += 1
+    return devs[0], [(i % len(devs), devs[i % len(devs)], sl)
+                     for i, sl in enumerate(slices)]
+
+
 def modification_table_pileup_pallas(qs, tpl, offs, q_lens, t_len, params,
                                      W: int, Tpad: int, strands=None,
                                      params_rev=None, seg_ids=None,
@@ -302,7 +330,8 @@ def modification_table_pileup_pallas(qs, tpl, offs, q_lens, t_len, params,
     (B, Tpad+1, NUM_EDIT)); with ``seg_ids``/``n_seg`` the per-pair gains
     are summed per segment on the device instead and the second result is
     the dense totals (numpy), a :class:`SparseGains` (``sparse_k``), or —
-    with ``finish=False`` — the device tensor of totals."""
+    with ``finish=False`` — the tensor of totals on the primary."""
+    from ..parallel import on_entry
     # the band is rounded up to a multiple of 128, as in the production
     # engine of the JAX package (the extra lanes only add paths)
     W = ((int(W) + 127) // 128) * 128
@@ -311,21 +340,27 @@ def modification_table_pileup_pallas(qs, tpl, offs, q_lens, t_len, params,
     qs = np.asarray(qs)
     offs = np.asarray(offs)
     q_lens = np.asarray(q_lens, np.int32)
+    params, params_rev = _host_params(params), _host_params(params_rev)
     reduce = seg_ids is not None
     lks, tabs, totals = [], [], None
-    for sl in _slices(qs.shape[0], W):
+    primary, parts = _device_slices(qs.shape[0], W)
+    for entry, dev, sl in parts:
         tpl_s, tl_s, st_s = _slice_inputs(tpl, t_len, strands, sl)
-        lk, tab = _modtable_slice(qs[sl], tpl_s, offs[sl], q_lens[sl], tl_s,
-                                  params, W, Tpad, st_s, params_rev)
-        lks.append(lk)
-        if reduce:
-            seg = torch.as_tensor(np.asarray(seg_ids)[sl], dtype=torch.int64,
-                                  device=lk.device)
-            tot = _gain_segments(lk, tab, seg, n_seg)
-            totals = tot if totals is None else totals + tot
-        else:
-            tabs.append(tab.cpu().numpy())
-    lk_all = torch.cat(lks).cpu().numpy() if lks else np.zeros(0, np.float32)
+        with on_entry(entry):
+            lk, tab = _modtable_slice(qs[sl], tpl_s, offs[sl], q_lens[sl],
+                                      tl_s, params, W, Tpad, st_s,
+                                      params_rev, device=dev)
+            lks.append(lk)
+            if reduce:
+                seg = torch.as_tensor(np.asarray(seg_ids)[sl],
+                                      dtype=torch.int64, device=dev)
+                tot = _gain_segments(lk, tab, seg, n_seg).to(primary)
+                totals = tot if totals is None else totals + tot
+            else:
+                tabs.append(tab)
+    lk_all = torch.cat([lk.to(primary) for lk in lks]).cpu().numpy() \
+        if lks else np.zeros(0, np.float32)
+    tabs = [tab.cpu().numpy() for tab in tabs]
     if reduce:
         if not finish:
             return lk_all, totals
@@ -440,11 +475,12 @@ def modtable_pileup_stats_pallas(qs, tpl, offs, q_lens, t_len, params,
                                  seg_ids, n_seg: int, exp_mat):
     """Variant-stats flavour of :func:`modification_table_pileup_pallas`:
     per slice, the modification tables are reduced on the device to
-    per-template variant statistics; the per-pair tables stay on the device
-    so candidate columns can be gathered afterwards.
+    per-template variant statistics; the per-pair tables stay on their
+    slice's device so candidate columns can be gathered afterwards.
 
     Returns (lks (B,), stats (n_seg, Tpad+1, NUM_EDIT, 6) float64,
     gather(flat_cols) -> (raw (B, U), comp (B, U)))."""
+    from ..parallel import on_entry
     W = ((int(W) + 127) // 128) * 128
     tpl = np.asarray(tpl)
     tpl = tpl[:Tpad] if tpl.ndim == 1 else tpl[:, :Tpad]
@@ -452,39 +488,50 @@ def modtable_pileup_stats_pallas(qs, tpl, offs, q_lens, t_len, params,
     offs = np.asarray(offs)
     q_lens = np.asarray(q_lens, np.int32)
     seg_ids = np.asarray(seg_ids, np.int64)
+    params, params_rev = _host_params(params), _host_params(params_rev)
     t0 = time.time()
-    kept = []   # (tab, lk, seg) per slice, device-resident
-    stats = None
-    exp_dev = None
-    for sl in _slices(qs.shape[0], W):
+    kept = []   # (entry, tab, lk, seg, exp_mat) per slice, on its device
+    sts = []
+    exp_dev = {}
+    primary, parts = _device_slices(qs.shape[0], W)
+    for entry, dev, sl in parts:
         tpl_s, tl_s, st_s = _slice_inputs(tpl, t_len, strands, sl)
-        lk, tab = _modtable_slice(qs[sl], tpl_s, offs[sl], q_lens[sl], tl_s,
-                                  params, W, Tpad, st_s, params_rev)
-        dev = lk.device
-        if exp_dev is None:
-            exp_dev = torch.as_tensor(np.asarray(exp_mat, np.float32),
-                                      device=dev)
-        seg = torch.as_tensor(seg_ids[sl], device=dev)
-        fwd = torch.ones(len(seg), dtype=torch.float32, device=dev)
-        if st_s is not None:
-            fwd = torch.as_tensor(np.asarray(st_s, bool).astype(np.float32),
-                                  device=dev)
-        st = _segsum_matmul(_stats_planes(tab, lk, seg, exp_dev, fwd), seg,
-                            n_seg).cpu().numpy().astype(np.float64)
+        with on_entry(entry):
+            lk, tab = _modtable_slice(qs[sl], tpl_s, offs[sl], q_lens[sl],
+                                      tl_s, params, W, Tpad, st_s,
+                                      params_rev, device=dev)
+            if entry not in exp_dev:
+                exp_dev[entry] = torch.as_tensor(
+                    np.asarray(exp_mat, np.float32), device=dev)
+            seg = torch.as_tensor(seg_ids[sl], device=dev)
+            fwd = torch.ones(len(seg), dtype=torch.float32, device=dev)
+            if st_s is not None:
+                fwd = torch.as_tensor(
+                    np.asarray(st_s, bool).astype(np.float32), device=dev)
+            sts.append(_segsum_matmul(_stats_planes(tab, lk, seg,
+                                                    exp_dev[entry], fwd),
+                                      seg, n_seg))
+        kept.append((entry, tab, lk, seg, exp_dev[entry]))
+    # the slices' stats summed in float64 in slice order, as one device
+    # sums them
+    stats = None
+    for st in sts:
+        st = st.cpu().numpy().astype(np.float64)
         stats = st if stats is None else stats + st
-        kept.append((tab, lk, seg))
-    lks = torch.cat([lk for _t, lk, _s in kept]).cpu().numpy()
+    lks = torch.cat([k[2].to(primary) for k in kept]).cpu().numpy()
     logger.info("modtable stats: %d pairs, %d slices, W=%d, %.1fs",
                 qs.shape[0], len(kept), W, time.time() - t0)
 
     def gather(flat_cols):
-        cols = torch.as_tensor(np.asarray(flat_cols, np.int64),
-                               device=kept[0][0].device)
+        cols = np.asarray(flat_cols, np.int64)
         raws, comps = [], []
-        for tab, lk, seg in kept:
-            prof, comp = _compressed_prof(tab, lk, seg, exp_dev)
-            raws.append(prof.reshape(prof.shape[0], -1)[:, cols])
-            comps.append(comp.reshape(comp.shape[0], -1)[:, cols])
-        return (torch.cat(raws).cpu().numpy(), torch.cat(comps).cpu().numpy())
+        for entry, tab, lk, seg, exp in kept:
+            with on_entry(entry):
+                c = torch.as_tensor(cols, device=tab.device)
+                prof, comp = _compressed_prof(tab, lk, seg, exp)
+                raws.append(prof.reshape(prof.shape[0], -1)[:, c])
+                comps.append(comp.reshape(comp.shape[0], -1)[:, c])
+        return (np.concatenate([r.cpu().numpy() for r in raws]),
+                np.concatenate([c.cpu().numpy() for c in comps]))
 
     return lks, stats, gather

@@ -139,7 +139,7 @@ def phmm_counts(fM, fI, fD, bM, bI, bD, fcum, bcum, rcs, qs, shifts, qlen,
             (shifts, "shifts", i32, (B, Q)), (qlen, "qlen", i32, (B,)),
             (lk, "lk", f64, (B,)), (trans, "trans", f32, (8, 8)),
             (me, "me", f32, (8, 8)), (ie, "ie", f32, (8, 8))):
-        check(t, dt, shape, f"phmm_counts {name}")
+        check(t, dt, shape, f"phmm_counts {name}", device=fM.device)
     # 16-byte loads of 4 lanes: rows of a multiple of 4 lanes, aligned bases
     vec = W % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tables)
     part = torch.empty((B, units, N_COUNTS), dtype=f32, device=fM.device)
@@ -209,6 +209,39 @@ class PairBatch:
                                        PHMMParams.default(dev), W, device=dev)
         self.q_lens = self.prep["q_lens"]
 
+    def rows(self, a: int, b: int, device) -> "PairBatch":
+        """Pairs ``a:b`` of the batch on ``device`` (a shard: every per-pair
+        tensor cut, the parameter tables copied)."""
+        out = PairBatch.__new__(PairBatch)
+        out.W = self.W
+        out.device = torch.device(device)
+        out.lk_args = tuple(t[a:b].to(device) for t in self.lk_args)
+        out.prep = {k: (v[a:b] if k in PAIR_KEYS else v).to(device)
+                    for k, v in self.prep.items()}
+        out.q_lens = out.prep["q_lens"]
+        return out
+
+
+def pair_lk(params, batch: PairBatch) -> torch.Tensor:
+    """lk (B,) of ``batch`` under ``params`` (on the batch's device): the
+    K1l kernel, not differentiable."""
+    return phmm_lk(*batch.lk_args, *tables8(params, batch.device))
+
+
+def pair_counts(params, batch: PairBatch) -> torch.Tensor:
+    """Expected counts (B, 45) of each pair of ``batch`` under ``params``
+    (on the batch's device): the float64 K1 tables and the counts kernel."""
+    return batch_counts(counts_prep(params, batch), batch.W)
+
+
+def param_grads(grad_lk, counts, trans, mat_emit, ins_emit):
+    """The three tables' gradients from lk's (B,) output gradient and the
+    (B, 45) counts: one sum over the pairs, ``d lk / d p_x = E[n_x] /
+    p_x``."""
+    g = (grad_lk.to(counts.dtype)[:, None] * counts).sum(0)
+    return (g[:9].view(3, 3) / trans, g[9:25].view(4, 4) / mat_emit,
+            g[25:].view(5, 4) / ins_emit)
+
 
 class PairHMMLikelihood(torch.autograd.Function):
     """lk (B,) of a :class:`PairBatch` under (trans, mat_emit, ins_emit),
@@ -216,20 +249,16 @@ class PairHMMLikelihood(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, trans, mat_emit, ins_emit, batch: PairBatch):
-        tabs = tables8(PHMMParams(trans, mat_emit, ins_emit), batch.device)
         ctx.save_for_backward(trans, mat_emit, ins_emit)
         ctx.batch = batch
-        return phmm_lk(*batch.lk_args, *tabs)
+        return pair_lk(PHMMParams(trans, mat_emit, ins_emit), batch)
 
     @staticmethod
     def backward(ctx, grad_lk):
         trans, mat_emit, ins_emit = ctx.saved_tensors
-        batch = ctx.batch
-        prep = counts_prep(PHMMParams(trans, mat_emit, ins_emit), batch)
-        counts = batch_counts(prep, batch.W)
-        g = (grad_lk.to(counts.dtype)[:, None] * counts).sum(0)
-        return (g[:9].view(3, 3) / trans, g[9:25].view(4, 4) / mat_emit,
-                g[25:].view(5, 4) / ins_emit, None)
+        counts = pair_counts(PHMMParams(trans, mat_emit, ins_emit), ctx.batch)
+        return (*param_grads(grad_lk, counts, trans, mat_emit, ins_emit),
+                None)
 
 
 def pair_likelihood(params, batch: PairBatch) -> torch.Tensor:

@@ -153,7 +153,7 @@ def phmm_lk(qs, shifts, inc, rc0, j0, qlen, tlen, trans, me, ie):
             (j0, "j0", i32, (B, W)), (qlen, "qlen", i32, (B,)),
             (tlen, "tlen", i32, (B,)), (trans, "trans", f32, (8, 8)),
             (me, "me", f32, (8, 8)), (ie, "ie", f32, (8, 8))):
-        check(t, dt, shape, f"phmm_lk {name}")
+        check(t, dt, shape, f"phmm_lk {name}", device=rc0.device)
     out = torch.empty(B, dtype=f32, device=rc0.device)
     emis = torch.empty((B, 5, Q), dtype=f32, device=rc0.device)
     launch("phmm_lk", "phmm_lk_launch", qs, shifts, inc, rc0, j0, qlen, tlen,

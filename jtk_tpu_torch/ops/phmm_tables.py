@@ -100,6 +100,19 @@ def _shl(x, n=1):
     return torch.nn.functional.pad(x[:, n:], (0, n))
 
 
+def _tree_row_sum(x):
+    """Row sums (B, 1) of ``x`` (B, W) by a pairwise tree of elementwise
+    adds over W padded with zeros to a power of two: the same order for
+    every row however many rows share the call (the library's reduction on
+    the card splits a row by the number of rows)."""
+    n = 1 << max(0, (x.shape[1] - 1).bit_length())
+    x = torch.nn.functional.pad(x, (0, n - x.shape[1]))
+    while x.shape[1] > 1:
+        h = x.shape[1] // 2
+        x = x[:, :h] + x[:, h:]
+    return x
+
+
 def _shr3(x):
     """(B, 3, W): lane k reads k-1 (0 fill)."""
     return torch.nn.functional.pad(x[..., :-1], (1, 0))
@@ -261,7 +274,7 @@ def _launch_tables(kind, emis, shifts, inc, rc0, j0, m0, i0, d0, qlen, tlen,
             (qlen, "qlen", i32, (B,)), (tlen, "tlen", i32, (B,)),
             (strand, "strand", i32, (B,)), (trans, "trans", f32, (8, 8)),
             (trans2, "trans2", f32, (8, 8))):
-        check(t, dt, shape, f"{kind}_tables {name}")
+        check(t, dt, shape, f"{kind}_tables {name}", device=rc0.device)
     dev = rc0.device
     outM = torch.empty((B, Q, W), dtype=dt_t, device=dev)
     outI = torch.empty_like(outM)
@@ -417,7 +430,13 @@ def kernel_inputs(prep, W: int, dtype=torch.float32, lk_init: bool = False):
                      tmd * torch.exp(logtdd * torch.clamp(kf[None] - 1, min=0)),
                      0.0) * (j0 <= tl_col)
     D0 = torch.where(j0 >= 1, D0, 0.0)
-    s0 = M0.sum(1, keepdim=True) + D0.sum(1, keepdim=True) + EPS
+    if dtype == torch.float64:
+        # the gradient's tables run per shard of a batch
+        # (:mod:`jtk_tpu_torch.parallel`): a pair's row 0 must not depend
+        # on how many pairs share the launch
+        s0 = _tree_row_sum(M0) + _tree_row_sum(D0) + EPS
+    else:
+        s0 = M0.sum(1, keepdim=True) + D0.sum(1, keepdim=True) + EPS
     M0n = (M0 / s0).contiguous()
     D0n = (D0 / s0).contiguous()
     I0n = torch.zeros_like(M0n)

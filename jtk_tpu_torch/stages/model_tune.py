@@ -8,7 +8,9 @@ Counterpart of ``jtk_tpu/stages/model_tune.py``: gradient ascent on the sum
 of read log-likelihoods over log-domain (softmax) parameters, whose
 gradient is the expected-count Baum-Welch statistic.  The port's step
 (:mod:`jtk_tpu_torch.parallel`) takes lk from the K1l kernel and its
-gradient from the K1 tables and the counts kernel, on one device.
+gradient from the K1 tables and the counts kernel, the reads sharded over
+the device set (:func:`jtk_tpu_torch.runtime.devices`), as ``jtk_tpu``
+shards them over its mesh; the fit is the same bits at any device count.
 """
 
 from __future__ import annotations
@@ -36,12 +38,14 @@ def _fit_strand(reads: list[np.ndarray], template: np.ndarray,
                 lr: float = 0.05, clip: float = 1.0):
     """Fit one strand's HMM with the gradient-EM train step."""
     from ..ops.phmm_grad import PairBatch
-    from ..parallel import make_train_steps, params_to_theta, theta_to_params
-    from ..runtime import device
+    from ..parallel import (make_train_steps, params_to_theta, shard_batch,
+                            theta_to_params)
+    from ..runtime import devices
 
     if not reads:
         return init
-    dev = device()
+    devs = devices()
+    dev = devs[0]
     t_len = len(template)
     Qpad = ((max(len(r) for r in reads) + 63) // 64) * 64
     qs = np.full((len(reads), Qpad), 4, np.int8)
@@ -71,10 +75,12 @@ def _fit_strand(reads: list[np.ndarray], template: np.ndarray,
         q_lens = np.concatenate(
             [q_lens, np.full(N - n, q_lens[0], np.int32)])
 
-    batch = PairBatch(qs, np.asarray(template, np.int8), offs, q_lens, t_len,
-                      W, device=dev)
+    # prepared once on the primary, cut once over the device set
+    batch = shard_batch(PairBatch(qs, np.asarray(template, np.int8), offs,
+                                  q_lens, t_len, W, device=dev), devs)
     wts_d = torch.as_tensor(wts, device=dev)
-    steps_fn = make_train_steps(W, lr=lr, clip=clip, n_inner=N_INNER)
+    steps_fn = make_train_steps(W, lr=lr, clip=clip, n_inner=N_INNER,
+                                devices=devs)
     theta = params_to_theta(init, device=dev)
     prev = None
     best = theta

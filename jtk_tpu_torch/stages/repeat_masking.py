@@ -5,15 +5,19 @@ iterator (:30-85), parallel counting (:162-194), percentile threshold
 (create_mask :255-285), lowercase masking of read ranges (:287-325), and
 ``repetitiveness(seq)`` = fraction of k-mers occurring >= 2x.
 
-Packing + counting is vectorized numpy (np.unique on packed uint64
-canonical k-mers) — the histogram is a single host pass; ``pack_kmers`` is
-shared with the mapper.  (The JAX package's sharded device histogram is a
-multi-device path; the port counts on the host, which gives the same mask.)
+Packing is vectorized numpy, shared with the mapper (``pack_kmers``).  For
+k <= 13, as ``jtk_tpu`` does on its mesh, the k-mers are counted on the
+device set (:func:`jtk_tpu_torch.runtime.devices`, one device or several)
+into 4^k exact bins (:func:`jtk_tpu_torch.parallel.make_sharded_kmer_hist`),
+and only the present k-mers and their counts come back to the host; above,
+4^k bins would not fit, and a single host pass counts them (np.unique on
+packed uint64 canonical k-mers).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .. import seq as seqmod
 from ..datamodel import DataSet
@@ -56,16 +60,23 @@ class RepeatAnnot:
         return float(rep) / len(vals)
 
 
+def _kmer_values(ds: DataSet, k: int) -> np.ndarray:
+    """Every read's valid canonical k-mers, concatenated."""
+    vals = [c[ok] for c, ok in (canonical_kmers(seqmod.encode(r.seq), k)
+                                for r in ds.raw_reads)]
+    return np.concatenate(vals) if vals else np.zeros(0, np.uint64)
+
+
 def count_kmers(ds: DataSet, k: int = DEFAULT_K):
-    all_vals = []
-    for r in ds.raw_reads:
-        canon, ok = canonical_kmers(seqmod.encode(r.seq), k)
-        all_vals.append(canon[ok])
-    if not all_vals:
-        return np.zeros(0, np.uint64), np.zeros(0, np.int64)
-    vals = np.concatenate(all_vals)
-    uniq, counts = np.unique(vals, return_counts=True)
-    return uniq, counts
+    """The distinct canonical k-mers of the reads, increasing, and their
+    counts (see the module docstring for where they are counted)."""
+    vals = _kmer_values(ds, k)
+    if k > 13:
+        return np.unique(vals, return_counts=True)
+    from ..parallel import make_sharded_kmer_hist
+    hist = make_sharded_kmer_hist(4 ** k)(vals.astype(np.int64))
+    uniq = torch.nonzero(hist)[:, 0]
+    return uniq.cpu().numpy().astype(vals.dtype), hist[uniq].cpu().numpy()
 
 
 def mask_repeats(ds: DataSet, k: int = DEFAULT_K, freq: float = DEFAULT_FREQ,

@@ -602,3 +602,127 @@ def test_edit_dp_and_walk_at_w32768_read_device_memory():
     ref = k3.traceback_packed_plain(packed, off, qlen, end, W)
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the device set: the card listed four times, and every card of the host
+# ---------------------------------------------------------------------------
+
+
+def _sharded(what):
+    """(function of (n_dev, dev), prepare(monkeypatch)) of
+    tests/test_torch_parallel.py's sharded paths."""
+    import test_torch_parallel as tp
+    from jtk_tpu_torch.ops import modtable as pmod
+
+    def modtable(monkeypatch):   # four slices of 16 pairs
+        monkeypatch.setattr(pmod, "MAXB", 16)
+
+    def masked(n_dev, dev):
+        return tp._masked(n_dev, dev, k=9, freq=0.01, min_count=3)
+
+    return {"train": (tp._train, None),
+            "pileup_lk": (lambda n, dev: tp._pileup_lk(n, dev=dev), None),
+            "modtable": (tp._modtables, modtable),
+            "extend": (tp._extend, None),
+            "mask_repeats": (masked, None)}[what]
+
+
+SHARDED = ["train", "pileup_lk", "modtable", "extend", "mask_repeats"]
+
+
+@pytest.mark.parametrize("what", SHARDED)
+def test_card_listed_four_times_matches_one_card(what, monkeypatch):
+    """Every split, per-shard launch and merge of a sharded path, on one
+    card: the same bits as the card alone."""
+    require_cuda()
+    import test_torch_parallel as tp
+    fn, prepare = _sharded(what)
+    if prepare:
+        prepare(monkeypatch)
+    tp._equal(fn(4, "cuda"), fn(1, "cuda"))
+
+
+@pytest.mark.parametrize("what", SHARDED)
+def test_every_card_matches_one_card(what, monkeypatch):
+    require_cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices: this host has "
+                    f"{torch.cuda.device_count()}")
+    import test_torch_parallel as tp
+    from jtk_tpu_torch.runtime import use_devices
+    fn, prepare = _sharded(what)
+    if prepare:
+        prepare(monkeypatch)
+    want = fn(1, "cuda")
+    cards = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    monkeypatch.setattr(tp, "_on", lambda n, dev: use_devices(cards))
+    tp._equal(fn(len(cards), "cuda"), want)
+
+
+class _FakeLibrary:
+    """Stands for a kernel library: records the current device and the
+    stream each entry point is called with."""
+
+    def __init__(self, seen):
+        self.seen = seen
+
+    def __getattr__(self, name):
+        def entry(*args):   # the stream pointer; 0, the default stream
+            self.seen.append((torch.cuda.current_device(),
+                              args[-1].value or 0))
+            return 0
+        return entry
+
+
+def test_launch_uses_its_tensors_stream_and_refuses_two_devices(monkeypatch):
+    require_cuda()
+    from jtk_tpu_torch.ops import cuda_build
+    seen = []
+    monkeypatch.setattr(cuda_build, "library",
+                        lambda name: _FakeLibrary(seen))
+    x = torch.zeros(4, device="cuda")
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        cuda_build.launch("lib", "entry", x, 3)
+    assert seen[-1] == (x.device.index, side.cuda_stream)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        cuda_build.launch("lib", "entry", x, torch.zeros(2))
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        cuda_build.check(x, torch.float32, (4,), "x",
+                         device=torch.device("cuda", x.device.index + 1))
+
+
+def test_kernel_on_a_side_stream_matches_plain():
+    require_cuda()
+    from jtk_tpu_torch.ops import phmm_grad as pg
+    from jtk_tpu_torch.ops import phmm_lk as k1l
+    from jtk_tpu_torch.ops.phmm import PHMMParams
+    tpl, qs, offs, q_lens, W = _pileup_cuda(np.random.default_rng(12))
+    batch = pg.PairBatch(qs, tpl, offs, q_lens, len(tpl), W, device="cuda")
+    params = PHMMParams.default("cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = pg.pair_lk(params, batch)
+    torch.cuda.current_stream().wait_stream(side)
+    want = k1l.phmm_lk_plain(*batch.lk_args, *k1l.tables8(params, "cuda"))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-2)
+
+
+def test_launch_on_a_second_card(monkeypatch):
+    require_cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices: this host has "
+                    f"{torch.cuda.device_count()}")
+    from jtk_tpu_torch.ops import cuda_build
+    seen = []
+    monkeypatch.setattr(cuda_build, "library",
+                        lambda name: _FakeLibrary(seen))
+    torch.cuda.set_device(0)
+    y = torch.zeros(4, device="cuda:1")
+    cuda_build.launch("lib", "entry", y)
+    assert seen[-1] == (1, torch.cuda.current_stream(1).cuda_stream)
+    assert torch.cuda.current_device() == 0
+    with pytest.raises(ValueError, match="one CUDA device"):
+        cuda_build.launch("lib", "entry", y, torch.zeros(4, device="cuda:0"))
