@@ -37,7 +37,7 @@
    path (b)'s shape) and per clustering call of 100 000 steps;
 4. path (a): the stage-by-stage slice reads -> GFA (entry, mask_repeats,
    select_chunks, pick_top_n_component, estimate/purge multiplicity,
-   local_clustering, assemble with contig polishing) on a simulated 60 kb
+   local_clustering, assemble with contig polishing) on a simulated 30 kb
    diploid region at 60x ONT-like coverage with the pipeline's defaults;
 5. path (b), the main path: ``jtk pipeline -p profile.toml --devices
    cuda`` through the port's CLI, on one device, on a fresh 60 kb / 60x
@@ -56,12 +56,18 @@
    bit, its per-chunk ARI and contig error; launches per kernel and per
    entry of the set, peak device memory per card and the modtable engine's
    calls by their number of slices are logged;
-7. the multidevice phase (the twin of ``__graft_entry__.py``'s
+7. path (d): the port's twin of ``scripts/validate_medium.py``
+   (``jtk_tpu_torch.tools.validate_medium``, the code of the 0.5 and 1 Mb
+   runs: simulator seed 2026, pipeline seed 13, contig polishing) at
+   150 kb / 60x on one card, cut only in length; its record (phase walls,
+   ARI, contigs, error, peak device memory and host RSS) is logged and
+   held to path (b)'s truth bars, and every kernel must launch in it;
+8. the multidevice phase (the twin of ``__graft_entry__.py``'s
    ``dryrun_multichip``): the train step, the sharded pileup lk, the k-mer
    histogram, a modtable engine call of three slices and a candidate batch
    of ``extend_candidates``, each on the card alone and on the card listed
    four times, compared bit for bit;
-8. counts every kernel's launches on each path (set to 0 just before it,
+9. counts every kernel's launches on each path (set to 0 just before it,
    read just after; path (a) by stage, path (b) by launch shape (B, Q, W),
    the five most frequent of each kernel), times each kernel at path
    (b)'s three most-launched shapes and K3's DP and walk at every shape
@@ -69,7 +75,7 @@
    the truth bars of tests/test_e2e.py on both (mean ARI > 0.6, mean
    contig error < 0.05, total length > 2/3 of the region for (a) and of
    both haplotypes for (b)), the five checkpoints and the resumed GFA;
-9. prints the kernels line, the card line, then {"ok": true, "device": ...}
+10. prints the kernels line, the card line, then {"ok": true, "device": ...}
    as the last line.  Any failure exits non-zero without the last line.
 
 ``--kernels-only`` stops after step 3 (a quick build-and-check run).  The
@@ -97,8 +103,12 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REGION = 60_000          # the only cut: production chunk/band/coverage
+REGION_A = 30_000        # path (a)'s region: its depth, cut for the time
+                         # limit once path (d) came
 COVERAGE = 60
 SEED = 42
+REGION_D = 150_000       # path (d): the twin of the 0.5 / 1 Mb runs, cut
+                         # only in length (the 1200 s limit)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM memory rate
 FP32_OPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 OUT_DIR = os.path.join(HERE, "chiprun_out", "chip_smoke")
@@ -1194,7 +1204,7 @@ def run_slice(rng, counters):
     from jtk_tpu_torch.stages.repeat_masking import mask_repeats
     from jtk_tpu_torch.stages.util import adjusted_rand_index
 
-    hap1, hap2 = sim.diploid(rng, REGION, het=0.004)
+    hap1, hap2 = sim.diploid(rng, REGION_A, het=0.004)
     reads = sim.simulate_reads(rng, [hap1, hap2], coverage=COVERAGE,
                                mean_len=15_000, error=0.05, clip_ends=True)
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -1215,7 +1225,7 @@ def run_slice(rng, counters):
         for i, r in enumerate(reads):
             f.write(f">sim_{i}\n{seqmod.decode(r['codes']).decode()}\n")
     chunk_len, margin = 2000, 500
-    take_num = int(3 * REGION / chunk_len / 2)
+    take_num = int(3 * REGION_A / chunk_len / 2)
     stage_s, stage_launches = {}, {}
     t = time.time()
     seen = [c.count for c in counters]
@@ -1407,6 +1417,55 @@ def _pipeline_in(rng, out, resume=True, devices=None):
     split = dump_sam_split(*seen[-1], out) if seen else None
     return dict(res, resumed=os.path.exists(f"{stem}.gfa"),
                 resume_s=resume_s, dump_sam_split=split)
+
+
+def run_validate_path():
+    """Path (d): the port's twin of ``scripts/validate_medium.py``
+    (``jtk_tpu_torch.tools.validate_medium``) at REGION_D / COVERAGE on
+    one card, with every other parameter of its 0.5 and 1 Mb runs (the
+    simulator's seed 2026, the pipeline's seed 13, contig polishing, npz
+    checkpoints).  Returns the twin's record."""
+    from jtk_tpu_torch.runtime import use_devices
+    from jtk_tpu_torch.stages import likelihood_gains
+    from jtk_tpu_torch.tools import validate_medium as vm
+
+    # the gain calibration is cached in the process: path (d) does its own
+    likelihood_gains._GAINS_CACHE.clear()
+    keep = os.path.join(OUT_DIR, "validate")
+    os.makedirs(keep, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="jtk_validate_") as work:
+        handler = logging.FileHandler(os.path.join(work, "pipeline.log"), "w")
+        handler.setFormatter(logging.Formatter(
+            "%(asctime)s %(name)s: %(message)s"))
+        root = logging.getLogger()
+        root.addHandler(handler)
+        root.setLevel(logging.INFO)
+        try:
+            with use_devices(["cuda"]):
+                # sets the launch counts and the card's peak memory to 0
+                # just before the pipeline and reads them just after
+                rec = vm.run(REGION_D, COVERAGE, work, ckpt="npz",
+                             resume=False)
+        finally:
+            root.removeHandler(handler)
+            handler.close()
+        for fn in ("v.gfa", "v.timings.tsv", "pipeline.log"):
+            if os.path.exists(os.path.join(work, fn)):
+                shutil.copy(os.path.join(work, fn), keep)
+    return rec
+
+
+def validate_failures(rec):
+    """Path (d)'s truth bars, as path (b)'s: mean ARI > 0.6, contig error
+    < 0.05, total length > 2/3 of both haplotypes; and every kernel
+    launched."""
+    res = dict(mean_ari=rec["mean_phasing_ari"] or float("nan"),
+               mean_error=rec["mean_contig_error"],
+               total_len=rec["assembly_len"])
+    out = truth_failures("path (d)", res, 2 * 2 * REGION_D / 3)
+    out += [f"path (d): {k} never launched"
+            for k, n in rec["launches"].items() if n == 0]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2080,6 +2139,15 @@ def main() -> int:
             + json.dumps(r["modtable_calls_by_slices"]))
         res_c.append(r)
         torch.cuda.empty_cache()
+    # path (d): the twin of scripts/validate_medium.py at 150 kb / 60x
+    res_d = run_validate_path()
+    log("path (d) validate_medium: " + json.dumps(res_d))
+    for phase, sec in res_d["stage_s"].items():
+        log(f"path (d) phase {phase}: {sec:.1f} s")
+    log(f"path (d) peak device memory: {res_d['peak_device_gib']} GiB, "
+        f"peak host RSS {res_d['peak_rss_mb']} MB; launches "
+        + ", ".join(f"{k}={n}" for k, n in res_d["launches"].items()))
+    torch.cuda.empty_cache()
     md_failures, res_md = multidevice_phase(np.random.default_rng(SEED + 4))
     path_failures += md_failures
     for row, na, nb in zip(rows, launches_a, launches_b):
@@ -2096,8 +2164,9 @@ def main() -> int:
                  and r["name"] != "phmm_counts (lk gradient)"]
     failures += spills
     failures += path_failures
-    failures += truth_failures("path (a)", res_a, 2 * REGION / 3)
+    failures += truth_failures("path (a)", res_a, 2 * REGION_A / 3)
     failures += truth_failures("path (b)", res_b, 2 * 2 * REGION / 3)
+    failures += validate_failures(res_d)
     if res_b["missing"]:
         failures.append(f"path (b): missing outputs {res_b['missing']}")
     if not res_b["resumed"]:
@@ -2111,7 +2180,8 @@ def main() -> int:
     kernels = [{k: r[k] for k in keys} for r in rows]
     with open(os.path.join(OUT_DIR, "result.json"), "w") as f:
         json.dump(dict(card=card, kernels=rows, slice=res_a,
-                       pipeline=res_b, path_c=res_c, multidevice=res_md,
+                       pipeline=res_b, path_c=res_c, validate=res_d,
+                       multidevice=res_md,
                        total_s=time.time() - t_all), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -6,6 +6,11 @@ kernels (:mod:`jtk_tpu_torch.ops.phmm_tables`); the closed-form assembly
 below is batched PyTorch over pairs with per-pair (strand-selected)
 parameters, and the band-to-column sums are scatter-free (row cumsum +
 boundary gather + a strided diagonal sum), so they are deterministic.
+The column sums run in float64 on the float32 tables: a column's sum is a
+difference of running row sums, and for an entry many nats below lk that
+difference cancels in float32 (``jtk_tpu``'s assembly, shared by its two
+engines, sums in float32 and misses the float64 oracle there by up to
+5 nats; tests/test_torch_modtable_oracle.py).
 
 Output layout per pair: (Tpad+1, 14) with columns
 [sub A,C,G,T | ins A,C,G,T | copy len 1..3 | del len 1..3]; row j holds
@@ -157,15 +162,17 @@ def modification_table_from_tables(q, offsets, q_len, t_len, trans, mat_emit,
         .expand(B, Tpad + 1, W)
     lo = torch.searchsorted(offs_c, o_vals, right=False)[..., None] \
         .expand(B, Tpad + 1, W)
-    zc = torch.zeros((B, 1, W), dtype=f32, device=dev)
+    zc = torch.zeros((B, 1, W), dtype=torch.float64, device=dev)
 
     def colsum(x):
         """sum over band cells of each template column jc -> (B, Tpad+1):
         rows sharing an offset are contiguous, so G[o, k] is a difference
-        of row cumsums, then out[j] = sum_k G[j-k, k]."""
-        C = torch.cat([zc, torch.cumsum(torch.where(valid, x, 0.0), 1)], 1)
+        of row cumsums, then out[j] = sum_k G[j-k, k].  In float64: the
+        difference cancels where the column's sum is far below the row's."""
+        C = torch.cat([zc, torch.cumsum(
+            torch.where(valid, x.to(torch.float64), 0.0), 1)], 1)
         G = torch.gather(C, 1, hi) - torch.gather(C, 1, lo)
-        return _diag_sum(G)
+        return _diag_sum(G).to(f32)
 
     def em_of(rc_codes):
         return torch.gather(em_q5, 2, rc_codes.to(torch.int64))

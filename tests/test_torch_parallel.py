@@ -22,7 +22,7 @@ from jtk_tpu_torch.ops.banded_align import linear_offsets
 from jtk_tpu_torch import runtime
 from jtk_tpu_torch import seq as seqmod
 from jtk_tpu_torch.stages import repeat_masking as rm
-from torch_util import port_on_cpu  # noqa: F401
+from torch_util import DEEP_COLS, oracle_misses, port_on_cpu  # noqa: F401
 
 SHARDS = [3, 4]   # ["cpu"] * 3 cuts 16 reads 6 / 5 / 5
 
@@ -464,19 +464,19 @@ def test_kmer_hist_matches_jax_mesh(jax_mesh):
     np.testing.assert_array_equal(hist.numpy(), jax_mesh["hist"])
 
 
-# The port's multi-base copy and deletion columns (copy 2-3, del 2-3) hold a
-# few entries of negative gain that differ from jtk_tpu's scan engine beyond
-# its tolerance on one device already (ROADMAP.md section 3.6; counted by
-# tests/torch_modtable_survey.py: 9-34 of 104 900 on six 50-read pileups).
-DEEP_COLS = [8 + 1, 8 + 2, 8 + pmod.COPY_SIZE + 1, 8 + pmod.COPY_SIZE + 2]
-DEEP_BOUND = 40
+# The port's multi-base copy and deletion columns (copy 2-3, del 2-3) hold
+# entries of negative gain where jtk_tpu's float32 column sums cancel and
+# the port's, in float64, meet the float64 oracle (ROADMAP.md section 3.6,
+# tests/test_torch_modtable_oracle.py): those may differ from the scan
+# engine, and a seeded sample of them is held against the oracle instead.
+ORACLE_SAMPLE = 8
 
 
 def test_modtable_matches_jax_mesh(jax_mesh, monkeypatch):
     """50 pairs in four slices of <= 16 over four entries, against the
     scan engine on jtk_tpu's 4-device mesh: lk and every entry at the
-    parity tolerance, except the deep entries of negative gain, of which
-    at most DEEP_BOUND may differ beyond it."""
+    parity tolerance, except deep entries of negative gain, which may
+    differ and then meet the float64 oracle (a seeded sample of 8)."""
     monkeypatch.setattr(pmod, "MAXB", 16)
     template, qs, offs, q_lens, W = _modtable_inputs()[:5]
     L = len(template)
@@ -490,13 +490,17 @@ def test_modtable_matches_jax_mesh(jax_mesh, monkeypatch):
     tj = jax_mesh["tab_m"]
     mask = tj > -1e29
     np.testing.assert_array_equal(tab > -1e29, mask)
+    off = mask & (np.abs(tab - tj) > 5e-2 + 1e-4 * np.abs(tj))
     deep = np.zeros_like(mask)
-    deep[:, :, DEEP_COLS] = True
+    deep[:, :, list(DEEP_COLS)] = True
     deep &= mask & (tj < jax_mesh["lk_m"][:, None, None])
-    held = mask & ~deep
-    np.testing.assert_allclose(tab[held], tj[held], rtol=1e-4, atol=5e-2)
-    off = np.abs(tab[deep] - tj[deep]) > 5e-2 + 1e-4 * np.abs(tj[deep])
-    assert int(off.sum()) <= DEEP_BOUND, int(off.sum())
+    np.testing.assert_array_equal(off & ~deep, False)
+    flagged = np.argwhere(off)
+    print(f"{len(flagged)} deep entries differ from the scan engine")
+    pick = flagged[np.random.default_rng(1).choice(
+        len(flagged), min(ORACLE_SAMPLE, len(flagged)), replace=False)]
+    assert oracle_misses(qs, q_lens, np.asarray(template, np.int8), tab,
+                         pick) == []
 
 
 # ---------------------------------------------------------------------------
