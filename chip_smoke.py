@@ -1172,26 +1172,15 @@ def launch_counters():
             cluster.CHAIN_LAUNCHES]
 
 
-class _LaunchCounts(logging.Filter):
-    """Stamps each log record with the launch counts so far, so that two
-    runs' logs show where their launches part."""
-
-    def __init__(self, counters):
-        super().__init__()
-        self.counters = counters
-
-    def filter(self, record):
-        record.launches = "/".join(str(c.count) for c in self.counters)
-        return True
-
-
 def run_slice(rng, counters):
     """Path (a).  ``counters`` (see :func:`launch_counters`) are read at
-    each stage's end and on every line of ``stages.log``; the polish
-    rounds' DEBUG lines go there too."""
+    each stage's end; the program's spans and counters
+    (:mod:`jtk_tpu_torch.trace`, on for this path) go to ``spans.tsv``
+    beside the outputs."""
     import numpy as np
 
     from jtk_tpu_torch import seq as seqmod
+    from jtk_tpu_torch import trace
     from jtk_tpu_torch.io import sim
     from jtk_tpu_torch.io.eval import assembly_metrics
     from jtk_tpu_torch.stages.assemble import assemble
@@ -1208,18 +1197,10 @@ def run_slice(rng, counters):
     reads = sim.simulate_reads(rng, [hap1, hap2], coverage=COVERAGE,
                                mean_len=15_000, error=0.05, clip_ends=True)
     os.makedirs(OUT_DIR, exist_ok=True)
-    # the stages' own timing lines (polish, cigar refresh, variant stats,
-    # mcmc, consensus rounds) go to a log beside the outputs, each with the
-    # launch counts K3/walk/K1f/K1b/K1l/counts/chain so far
-    handler = logging.FileHandler(os.path.join(OUT_DIR, "stages.log"), "w")
-    handler.addFilter(_LaunchCounts(counters))
-    handler.setFormatter(logging.Formatter(
-        "%(asctime)s [%(launches)s] %(name)s: %(message)s"))
-    root = logging.getLogger()
-    root.addHandler(handler)
-    root.setLevel(logging.INFO)
-    polish_log = logging.getLogger("jtk_tpu_torch.ops.polish")
-    polish_log.setLevel(logging.DEBUG)
+    # the stages' spans (polish, cigar refresh, variant features, mcmc,
+    # select_chunks' segments, consensus rounds) and the launch counters
+    trace.reset()
+    trace.enable()
     fa = os.path.join(OUT_DIR, "reads.fa")
     with open(fa, "w") as f:
         for i, r in enumerate(reads):
@@ -1270,13 +1251,11 @@ def run_slice(rng, counters):
         aris.append(adjusted_rand_index(truth, asn))
     m = assembly_metrics(gfa, [hap1, hap2])
     mark("evaluation")
-    root.removeHandler(handler)
-    handler.close()
-    polish_log.setLevel(logging.NOTSET)
-    with open(os.path.join(OUT_DIR, "stages.log")) as f:
-        for line in f:
-            if "local_clustering:" in line or "select_chunks:" in line:
-                log("  " + line.split(" ", 2)[2].rstrip())
+    trace.disable()
+    trace.write(os.path.join(OUT_DIR, "spans.tsv"))
+    for name, (calls, sec) in sorted(trace.snapshot()["spans"].items()):
+        if name.startswith(("clustering.", "select_chunks.", "polish")):
+            log(f"  span {name}: {calls} calls, {sec:.3f} s")
     return dict(n_reads=len(reads), chunks=len(ds.selected_chunks),
                 phased_chunks=len(aris),
                 mean_ari=float(np.mean(aris)) if aris else float("nan"),

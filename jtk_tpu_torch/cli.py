@@ -10,10 +10,13 @@ plus ``--device`` on every subcommand (default ``cuda``; ``--device cpu``
 runs the plain PyTorch versions of the kernels) and ``--devices``, the
 device set of the data-parallel paths (comma-separated, an entry may
 repeat; default every visible GPU when the device is cuda;
-``--devices cuda`` keeps a multi-GPU host on one card)::
+``--devices cuda`` keeps a multi-GPU host on one card), and ``--trace
+FILE``, which records the program's spans and counters
+(:mod:`jtk_tpu_torch.trace`) and writes them to FILE at exit::
 
     python -m jtk_tpu_torch.cli pipeline -p profile.toml [--device cpu]
     python -m jtk_tpu_torch.cli pipeline -p profile.toml --devices cuda:0,cuda:1
+    python -m jtk_tpu_torch.cli pipeline -p profile.toml --trace spans.tsv
 
 Defaults mirror the reference (jtk_commands.rs: chunk_len 2000 :100,
 take_num 500 :108, margin 500 :116, exclude 0.8 :131, purge_copy_num 10 :140,
@@ -136,18 +139,28 @@ def build_parser() -> argparse.ArgumentParser:
                         help="comma-separated device set of the "
                         "data-parallel paths, primary first (default: "
                         "every visible GPU when the device is cuda)")
+        sp.add_argument("--trace", default=None, metavar="FILE",
+                        help="record the program's spans and counters and "
+                        "write them to FILE as TSV at exit")
     return p
 
 
 def main(argv=None):
+    from . import trace
     from .runtime import use_device, use_devices
     args = build_parser().parse_args(argv)
     level = [logging.WARNING, logging.INFO, logging.DEBUG][min(args.verbose, 2)]
     logging.basicConfig(level=level, stream=sys.stderr,
                         format="%(levelname)s %(name)s: %(message)s")
-    with (use_devices(args.devices.split(",")) if args.devices
-          else use_device(args.device)):
-        _dispatch(args)
+    if args.trace:
+        trace.enable()
+    try:
+        with (use_devices(args.devices.split(",")) if args.devices
+              else use_device(args.device)):
+            _dispatch(args)
+    finally:
+        if args.trace:
+            trace.write(args.trace)
 
 
 def _dispatch(args):

@@ -24,6 +24,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from .. import seq as seqmod
+from .. import trace
 from ..ops.banded_align import (align_with_cigar_batch, decode_indexed,
                                 diagonal_offsets)
 
@@ -98,6 +99,7 @@ class Candidate:
 class ChunkIndex:
     """Sorted k-mer table over the chunk set."""
 
+    @trace.span("mapper.index")
     def __init__(self, chunk_seqs: dict[int, np.ndarray], k: int = 15,
                  max_occ: int = 64, hpc: bool = False):
         self.k = k
@@ -232,6 +234,7 @@ class ChunkIndex:
                                  int(c2[i])))
         return out
 
+    @trace.span("mapper.vote")
     def candidates_batch(self, read_codes: list, min_hits: int = 4,
                          margin: int = 200, stride: int = 3):
         """All reads' candidates in one vectorized sweep: k-mers of every
@@ -323,6 +326,7 @@ class ChunkIndex:
         return out
 
 
+@trace.span("mapper.extend", device=True)
 def extend_candidates(cands: list[Candidate], read_codes: list[np.ndarray],
                       chunk_seqs: dict[int, np.ndarray], W: int = 256,
                       margin: int = 200, batch: int = 2048):
@@ -339,46 +343,46 @@ def extend_candidates(cands: list[Candidate], read_codes: list[np.ndarray],
     if not cands:
         return []
     import logging
-    import time as _time
 
     import torch
 
     from ..ops.edit_dp import extend_hostwin_packed, to_host
     from ..parallel import gather, on_entry, replicate, shard_bounds
     from ..runtime import devices
-    _logger = logging.getLogger(__name__)
-    _t0 = _time.time()
+    logging.getLogger(__name__).info("extend: %d candidates", len(cands))
     devs = devices()
-    cid_list = sorted(chunk_seqs)
-    cidx_of = {cid: i for i, cid in enumerate(cid_list)}
-    # the DP runs over Qpad rows (at least 2048: the production chunk
-    # length); rows past each chunk's length are frozen
-    Qpad = max(2048, ((max(len(chunk_seqs[c]) for c in cid_list) + 127)
-                      // 128) * 128)
-    Tpad = ((max(c.window_len for c in cands) + 511) // 512) * 512
-    chunks_blob = np.full((len(cid_list), Qpad), 4, np.int8)
-    chunk_lens = np.ones(len(cid_list), np.int32)
-    for i, cid in enumerate(cid_list):
-        s = chunk_seqs[cid]
-        chunks_blob[i, :len(s)] = s
-        chunk_lens[i] = len(s)
-    dev_blob, dev_lens = replicate(
-        devs, torch.as_tensor(chunks_blob, dtype=torch.int32),
-        torch.as_tensor(chunk_lens, dtype=torch.int64))
-    # flat [fwd reads | rc reads] blob for the vectorized window gather:
-    # one clip-mode np.take builds every window row.  RC coordinates match
-    # the candidate sweep's (window_start is emitted in RC-read coords for
-    # reverse candidates).
-    read_lens = np.array([len(r) for r in read_codes], np.int64)
-    read_starts = np.zeros(len(read_codes) + 1, np.int64)
-    np.cumsum(read_lens, out=read_starts[1:])
-    _blob_fwd = (np.concatenate(read_codes).astype(np.int8, copy=False)
-                 if read_codes else np.zeros(0, np.int8))
-    _blob_rc = (np.concatenate([seqmod.revcomp(r) for r in read_codes])
-                .astype(np.int8, copy=False)
-                if read_codes else np.zeros(0, np.int8))
-    read_blob = np.concatenate([_blob_fwd, _blob_rc, np.zeros(1, np.int8)])
-    rc_base = len(_blob_fwd)
+    with trace.span("mapper.windows"):
+        cid_list = sorted(chunk_seqs)
+        cidx_of = {cid: i for i, cid in enumerate(cid_list)}
+        # the DP runs over Qpad rows (at least 2048: the production chunk
+        # length); rows past each chunk's length are frozen
+        Qpad = max(2048, ((max(len(chunk_seqs[c]) for c in cid_list) + 127)
+                          // 128) * 128)
+        Tpad = ((max(c.window_len for c in cands) + 511) // 512) * 512
+        chunks_blob = np.full((len(cid_list), Qpad), 4, np.int8)
+        chunk_lens = np.ones(len(cid_list), np.int32)
+        for i, cid in enumerate(cid_list):
+            s = chunk_seqs[cid]
+            chunks_blob[i, :len(s)] = s
+            chunk_lens[i] = len(s)
+        dev_blob, dev_lens = replicate(
+            devs, torch.as_tensor(chunks_blob, dtype=torch.int32),
+            torch.as_tensor(chunk_lens, dtype=torch.int64))
+        # flat [fwd reads | rc reads] blob for the vectorized window gather:
+        # one clip-mode np.take builds every window row.  RC coordinates
+        # match the candidate sweep's (window_start is emitted in RC-read
+        # coords for reverse candidates).
+        read_lens = np.array([len(r) for r in read_codes], np.int64)
+        read_starts = np.zeros(len(read_codes) + 1, np.int64)
+        np.cumsum(read_lens, out=read_starts[1:])
+        _blob_fwd = (np.concatenate(read_codes).astype(np.int8, copy=False)
+                     if read_codes else np.zeros(0, np.int8))
+        _blob_rc = (np.concatenate([seqmod.revcomp(r) for r in read_codes])
+                    .astype(np.int8, copy=False)
+                    if read_codes else np.zeros(0, np.int8))
+        read_blob = np.concatenate([_blob_fwd, _blob_rc,
+                                    np.zeros(1, np.int8)])
+        rc_base = len(_blob_fwd)
     results = []
     overflow = []
     pre_redo = []  # candidates whose window holds a code >3 (N): these rare
@@ -386,72 +390,77 @@ def extend_candidates(cands: list[Candidate], read_codes: list[np.ndarray],
     for s in range(0, len(cands), batch):
         grp = cands[s:s + batch]
         B = len(grp)
-        ri_a = np.array([c.read_idx for c in grp], np.int64)
-        fw_a = np.array([c.is_forward for c in grp], bool)
-        ws_a = np.array([c.window_start for c in grp], np.int64)
-        wl_a = np.array([c.window_len for c in grp], np.int64)
-        a_a = np.maximum(ws_a, 0)
-        bnd_a = np.minimum(ws_a + wl_a, read_lens[ri_a])
-        wlen = np.maximum(bnd_a - a_a, 0)
-        # int64 gather indices: no wrap however many read bases the blob holds
-        base = np.where(fw_a, 0, rc_base) + read_starts[ri_a] + a_a
-        col = np.arange(Tpad, dtype=np.int64)
-        idx = np.minimum(base[:, None] + col[None, :], len(read_blob) - 1)
-        rows = np.where(col[None, :] < wlen[:, None],
-                        read_blob.take(idx), 0).astype(np.int8)
-        has_n = rows.max(axis=1, initial=0) > 3
-        for b in np.nonzero(has_n)[0]:
-            pre_redo.append(grp[b])
-            wlen[b] = 0
-        rows[has_n] = 0
-        cc = np.array([cidx_of[c.chunk_id] for c in grp], np.int64)
-        t_lens = np.maximum(wlen, 1)
-        parts = []
-        for i, (a, b) in enumerate(shard_bounds(B, len(devs))):
-            if a == b:
-                continue
-            with on_entry(i):
-                parts.append(extend_hostwin_packed(
-                    dev_blob[i], dev_lens[i], cc[a:b], rows[a:b], ws_a[a:b],
-                    a_a[a:b], t_lens[a:b], W, Qpad, Tpad, margin,
-                    device=devs[i]))
-        meta, ops_packed, delpack = to_host(
-            *(gather([p[n] for p in parts], devs[0]) for n in range(3)))
-        q_lens = [len(chunk_seqs[c.chunk_id]) for c in grp]
-        decoded = decode_indexed(meta, ops_packed, delpack, q_lens)
-        for c, (score, sj, ej, cigar, valid) in zip(grp, decoded):
-            rec = {
-                "cand": c,
-                "dist": score if valid else (1 << 30),
-                "ops": cigar,
-                "span_start": sj,
-                "span_end": ej,
-            }
-            if not valid:
-                # a window shorter than half the chunk can never reach the
-                # identity threshold: a guaranteed reject, no redo.  Only
-                # >DEL_TOPK deletion runs (rare) need the dense legacy pass.
-                a = max(c.window_start, 0)
-                bnd = min(c.window_start + c.window_len,
-                          len(read_codes[c.read_idx]))
-                if bnd - a >= len(chunk_seqs[c.chunk_id]) // 2:
+        with trace.span("mapper.windows"):
+            ri_a = np.array([c.read_idx for c in grp], np.int64)
+            fw_a = np.array([c.is_forward for c in grp], bool)
+            ws_a = np.array([c.window_start for c in grp], np.int64)
+            wl_a = np.array([c.window_len for c in grp], np.int64)
+            a_a = np.maximum(ws_a, 0)
+            bnd_a = np.minimum(ws_a + wl_a, read_lens[ri_a])
+            wlen = np.maximum(bnd_a - a_a, 0)
+            # int64 gather indices: no wrap however many read bases the
+            # blob holds
+            base = np.where(fw_a, 0, rc_base) + read_starts[ri_a] + a_a
+            col = np.arange(Tpad, dtype=np.int64)
+            idx = np.minimum(base[:, None] + col[None, :], len(read_blob) - 1)
+            rows = np.where(col[None, :] < wlen[:, None],
+                            read_blob.take(idx), 0).astype(np.int8)
+            has_n = rows.max(axis=1, initial=0) > 3
+            for b in np.nonzero(has_n)[0]:
+                pre_redo.append(grp[b])
+                wlen[b] = 0
+            rows[has_n] = 0
+            cc = np.array([cidx_of[c.chunk_id] for c in grp], np.int64)
+            t_lens = np.maximum(wlen, 1)
+        with trace.span("mapper.k3", device=True):
+            parts = []
+            for i, (a, b) in enumerate(shard_bounds(B, len(devs))):
+                if a == b:
+                    continue
+                with on_entry(i):
+                    parts.append(extend_hostwin_packed(
+                        dev_blob[i], dev_lens[i], cc[a:b], rows[a:b],
+                        ws_a[a:b], a_a[a:b], t_lens[a:b], W, Qpad, Tpad,
+                        margin, device=devs[i]))
+            meta, ops_packed, delpack = to_host(
+                *(gather([p[n] for p in parts], devs[0]) for n in range(3)))
+        with trace.span("mapper.decode"):
+            q_lens = [len(chunk_seqs[c.chunk_id]) for c in grp]
+            decoded = decode_indexed(meta, ops_packed, delpack, q_lens)
+            for c, (score, sj, ej, cigar, valid) in zip(grp, decoded):
+                rec = {
+                    "cand": c,
+                    "dist": score if valid else (1 << 30),
+                    "ops": cigar,
+                    "span_start": sj,
+                    "span_end": ej,
+                }
+                if not valid:
+                    # a window shorter than half the chunk can never reach
+                    # the identity threshold: a guaranteed reject, no redo.
+                    # Only >DEL_TOPK deletion runs (rare) need the dense
+                    # legacy pass.
+                    a = max(c.window_start, 0)
+                    bnd = min(c.window_start + c.window_len,
+                              len(read_codes[c.read_idx]))
+                    if bnd - a >= len(chunk_seqs[c.chunk_id]) // 2:
+                        overflow.append(rec)
+                results.append(rec)
+    with trace.span("mapper.decode"):
+        if pre_redo:
+            redo_set = {id(c) for c in pre_redo}
+            seen = {id(rec) for rec in overflow}
+            for rec in results:
+                if id(rec["cand"]) in redo_set and id(rec) not in seen:
+                    rec["dist"] = 1 << 30
                     overflow.append(rec)
-            results.append(rec)
-    _logger.info("extend: %d cands in %.2fs", len(cands), _time.time() - _t0)
-    if pre_redo:
-        redo_set = {id(c) for c in pre_redo}
-        seen = {id(rec) for rec in overflow}
-        for rec in results:
-            if id(rec["cand"]) in redo_set and id(rec) not in seen:
-                rec["dist"] = 1 << 30
-                overflow.append(rec)
-    if overflow:
-        # rare rows (N windows / >DEL_TOPK deletion runs): redo on the
-        # legacy per-candidate path
-        redo = _extend_legacy([r["cand"] for r in overflow], read_codes,
-                              chunk_seqs, W, margin)
-        for rec, new in zip(overflow, redo):
-            rec.update(new)
+        if overflow:
+            # rare rows (N windows / >DEL_TOPK deletion runs): redo on the
+            # legacy per-candidate path
+            redo = _extend_legacy([r["cand"] for r in overflow], read_codes,
+                                  chunk_seqs, W, margin)
+            for rec, new in zip(overflow, redo):
+                rec.update(new)
     return results
 
 

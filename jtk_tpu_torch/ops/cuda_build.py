@@ -27,6 +27,8 @@ import threading
 
 import torch
 
+from .. import trace
+
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -47,13 +49,17 @@ class Launches:
     """Launch counter of one kernel wrapper: :meth:`add` is called where the
     wrapper launches its kernel, and nowhere else.  ``count`` is the number
     of launches, ``shapes`` counts them by launch shape and ``entries`` by
-    the entry of the device set (:data:`ENTRY`) they ran for."""
+    the entry of the device set (:data:`ENTRY`) they ran for.  It counts
+    whether tracing is on or off; :func:`trace.snapshot` lists ``count``
+    as ``launches.<name>``."""
 
     def __init__(self, name: str):
         self.name = name
         self.count = 0
         self.shapes: collections.Counter = collections.Counter()
         self.entries: collections.Counter = collections.Counter()
+        trace.register(lambda: {f"launches.{self.name}": self.count},
+                       self.reset)
 
     def add(self, shape: tuple) -> None:
         self.count += 1

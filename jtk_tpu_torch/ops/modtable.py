@@ -30,11 +30,11 @@ from __future__ import annotations
 
 import collections
 import logging
-import time
 
 import numpy as np
 import torch
 
+from .. import trace
 from .phmm import EPS, PHMMParams, _np
 from .phmm_tables import prep_tables_inputs, tables_batch
 
@@ -47,6 +47,8 @@ MAXB = 192           # pairs per fused slice at W <= 256
 POS_THR_DEV = 1e-5   # == ops.cluster.POS_THR (variant-support threshold)
 # engine calls by their number of slices (how many could use a device set)
 SLICE_CALLS: collections.Counter = collections.Counter()
+trace.register(lambda: {f"modtable.calls_by_slices.{k}": v
+                        for k, v in SLICE_CALLS.items()}, SLICE_CALLS.clear)
 
 
 def _shl2(tab, fill=0.0):
@@ -281,16 +283,19 @@ def _modtable_slice(qs, tpl, offs, q_lens, t_len, params, W: int, Tpad: int,
     """Both table passes + the assembly for one slice of pairs on
     ``device``, with per-pair strand-selected parameters (reverse-strand
     reads are scored with the reverse-strand HMM)."""
-    prep = prep_tables_inputs(qs, tpl, offs, q_lens, t_len, params, W,
-                              strands=strands, params_rev=params_rev,
-                              device=device)
-    lk, f_tabs, fcum, rcs, b_tabs, bcum, offs_t = tables_batch(prep, W)
-    sf = prep["strand"].to(torch.float32)[:, None, None]
-    trans_b = (1.0 - sf) * prep["trans"][:3, :3] + sf * prep["trans2"][:3, :3]
-    me_b = (1.0 - sf) * prep["me8"][:4, :4] + sf * prep["me28"][:4, :4]
-    return modification_table_from_tables(
-        prep["qs"], offs_t, prep["q_lens"], prep["t_lens"], trans_b, me_b, W,
-        Tpad, lk, f_tabs, fcum, rcs, b_tabs, bcum)
+    with trace.span("modtable.k1", device=True):
+        prep = prep_tables_inputs(qs, tpl, offs, q_lens, t_len, params, W,
+                                  strands=strands, params_rev=params_rev,
+                                  device=device)
+        lk, f_tabs, fcum, rcs, b_tabs, bcum, offs_t = tables_batch(prep, W)
+    with trace.span("modtable.assembly", device=True):
+        sf = prep["strand"].to(torch.float32)[:, None, None]
+        trans_b = (1.0 - sf) * prep["trans"][:3, :3] \
+            + sf * prep["trans2"][:3, :3]
+        me_b = (1.0 - sf) * prep["me8"][:4, :4] + sf * prep["me28"][:4, :4]
+        return modification_table_from_tables(
+            prep["qs"], offs_t, prep["q_lens"], prep["t_lens"], trans_b,
+            me_b, W, Tpad, lk, f_tabs, fcum, rcs, b_tabs, bcum)
 
 
 def _slices(n: int, W: int):
@@ -315,11 +320,13 @@ def _host_params(p):
 def _device_slices(n: int, W: int):
     """The primary and (entry, device, slice) of each pair slice, slice i
     on entry i mod the device set's size; counts the call in
-    SLICE_CALLS."""
+    SLICE_CALLS and, while tracing, the slices and pairs."""
     from ..runtime import devices
     devs = devices()
     slices = _slices(n, W)
     SLICE_CALLS[len(slices)] += 1
+    trace.count("modtable.slices", len(slices))
+    trace.count("modtable.pairs", n)
     return devs[0], [(i % len(devs), devs[i % len(devs)], sl)
                      for i, sl in enumerate(slices)]
 
@@ -359,10 +366,11 @@ def modification_table_pileup_pallas(qs, tpl, offs, q_lens, t_len, params,
                                       params_rev, device=dev)
             lks.append(lk)
             if reduce:
-                seg = torch.as_tensor(np.asarray(seg_ids)[sl],
-                                      dtype=torch.int64, device=dev)
-                tot = _gain_segments(lk, tab, seg, n_seg).to(primary)
-                totals = tot if totals is None else totals + tot
+                with trace.span("modtable.assembly", device=True):
+                    seg = torch.as_tensor(np.asarray(seg_ids)[sl],
+                                          dtype=torch.int64, device=dev)
+                    tot = _gain_segments(lk, tab, seg, n_seg).to(primary)
+                    totals = tot if totals is None else totals + tot
             else:
                 tabs.append(tab)
     lk_all = torch.cat([lk.to(primary) for lk in lks]).cpu().numpy() \
@@ -396,6 +404,7 @@ class SparseGains:
         return self._dense_dev[i].cpu().numpy().astype(np.float64)
 
 
+@trace.span("modtable.assembly", device=True)
 def finish_gains(tot_dev, n_seg, sparse_k, min_gain):
     """Materialize accumulated device gain totals: dense (numpy float64),
     or as SparseGains when ``sparse_k`` is set."""
@@ -496,7 +505,6 @@ def modtable_pileup_stats_pallas(qs, tpl, offs, q_lens, t_len, params,
     q_lens = np.asarray(q_lens, np.int32)
     seg_ids = np.asarray(seg_ids, np.int64)
     params, params_rev = _host_params(params), _host_params(params_rev)
-    t0 = time.time()
     kept = []   # (entry, tab, lk, seg, exp_mat) per slice, on its device
     sts = []
     exp_dev = {}
@@ -510,24 +518,27 @@ def modtable_pileup_stats_pallas(qs, tpl, offs, q_lens, t_len, params,
             if entry not in exp_dev:
                 exp_dev[entry] = torch.as_tensor(
                     np.asarray(exp_mat, np.float32), device=dev)
-            seg = torch.as_tensor(seg_ids[sl], device=dev)
-            fwd = torch.ones(len(seg), dtype=torch.float32, device=dev)
-            if st_s is not None:
-                fwd = torch.as_tensor(
-                    np.asarray(st_s, bool).astype(np.float32), device=dev)
-            sts.append(_segsum_matmul(_stats_planes(tab, lk, seg,
-                                                    exp_dev[entry], fwd),
-                                      seg, n_seg))
+            with trace.span("modtable.assembly", device=True):
+                seg = torch.as_tensor(seg_ids[sl], device=dev)
+                fwd = torch.ones(len(seg), dtype=torch.float32, device=dev)
+                if st_s is not None:
+                    fwd = torch.as_tensor(
+                        np.asarray(st_s, bool).astype(np.float32),
+                        device=dev)
+                sts.append(_segsum_matmul(
+                    _stats_planes(tab, lk, seg, exp_dev[entry], fwd), seg,
+                    n_seg))
         kept.append((entry, tab, lk, seg, exp_dev[entry]))
     # the slices' stats summed in float64 in slice order, as one device
     # sums them
-    stats = None
-    for st in sts:
-        st = st.cpu().numpy().astype(np.float64)
-        stats = st if stats is None else stats + st
-    lks = torch.cat([k[2].to(primary) for k in kept]).cpu().numpy()
-    logger.info("modtable stats: %d pairs, %d slices, W=%d, %.1fs",
-                qs.shape[0], len(kept), W, time.time() - t0)
+    with trace.span("modtable.assembly", device=True):
+        stats = None
+        for st in sts:
+            st = st.cpu().numpy().astype(np.float64)
+            stats = st if stats is None else stats + st
+        lks = torch.cat([k[2].to(primary) for k in kept]).cpu().numpy()
+    logger.info("modtable stats: %d pairs, %d slices, W=%d", qs.shape[0],
+                len(kept), W)
 
     def gather(flat_cols):
         cols = np.asarray(flat_cols, np.int64)

@@ -9,13 +9,9 @@ per-edit estimates stay valid; repeat until no improving edit remains.
 
 from __future__ import annotations
 
-import logging
-import time
-
 import numpy as np
 
-logger = logging.getLogger(__name__)
-
+from .. import trace
 from .banded_align import linear_offsets
 from .modtable import NUM_EDIT, finish_gains, \
     modification_table_pileup_pallas
@@ -201,6 +197,7 @@ def apply_edits(template: np.ndarray, edits) -> np.ndarray:
     return t.astype(np.int8)
 
 
+@trace.span("polish", device=True)
 def polish_many(templates: list, pileups: list, params: PHMMParams,
                 W: int = 128, max_rounds: int = 20, min_gain: float = 0.1,
                 spacing: int = 8, strands: list | None = None,
@@ -223,52 +220,52 @@ def polish_many(templates: list, pileups: list, params: PHMMParams,
     Tpad = pad_bucket(max((len(t) for t in tpls), default=1)
                       + 128, step=128)
     for _ in range(max_rounds):
-        _t_round = time.time()
         idxs = [i for i in range(n) if active[i]]
         if not idxs:
             break
-        while any(len(tpls[i]) + 8 > Tpad for i in idxs):
-            Tpad = pad_bucket(max(len(tpls[i]) for i in idxs) + 128,
-                              step=128)
-        # flat batch of (read, template-of-its-pileup) pairs
-        pair_tpl_idx, pair_reads, pair_strand = [], [], []
-        pair_read_idx = []
-        for i in idxs:
-            for rj, r in enumerate(pileups[i]):
-                pair_tpl_idx.append(i)
-                pair_read_idx.append(rj)
-                pair_reads.append(r)
-                pair_strand.append(True if strands[i] is None
-                                   else bool(strands[i][rj]))
-        q_lens = np.array([len(r) for r in pair_reads], np.int32)
-        t_lens = np.array([len(tpls[i]) for i in pair_tpl_idx], np.int32)
-        Bp = len(pair_reads)
-        pair_strand = np.asarray(pair_strand, bool)
-        loc = {i: pos for pos, i in enumerate(idxs)}
-        buckets, dropped = band_buckets(q_lens, t_lens, W)
-        # pathological pairs (deficit beyond 8W) are excluded; their reads
-        # keep an effectively -inf likelihood
-        for b in dropped:
-            lks[pair_tpl_idx[b]][pair_read_idx[b]] = -1e30
+        with trace.span("polish.prep"):
+            while any(len(tpls[i]) + 8 > Tpad for i in idxs):
+                Tpad = pad_bucket(max(len(tpls[i]) for i in idxs) + 128,
+                                  step=128)
+            # flat batch of (read, template-of-its-pileup) pairs
+            pair_tpl_idx, pair_reads, pair_strand = [], [], []
+            pair_read_idx = []
+            for i in idxs:
+                for rj, r in enumerate(pileups[i]):
+                    pair_tpl_idx.append(i)
+                    pair_read_idx.append(rj)
+                    pair_reads.append(r)
+                    pair_strand.append(True if strands[i] is None
+                                       else bool(strands[i][rj]))
+            q_lens = np.array([len(r) for r in pair_reads], np.int32)
+            t_lens = np.array([len(tpls[i]) for i in pair_tpl_idx], np.int32)
+            pair_strand = np.asarray(pair_strand, bool)
+            loc = {i: pos for pos, i in enumerate(idxs)}
+            buckets, dropped = band_buckets(q_lens, t_lens, W)
+            # pathological pairs (deficit beyond 8W) are excluded; their
+            # reads keep an effectively -inf likelihood
+            for b in dropped:
+                lks[pair_tpl_idx[b]][pair_read_idx[b]] = -1e30
         tot_dev = None
         for Wb, bidx in buckets:
-            qlb = q_lens[bidx]
-            tlb = t_lens[bidx]
-            Qpad = pad_bucket(int(qlb.max()))
-            nb = len(bidx)
-            qs = np.full((nb, Qpad), 4, np.int8)
-            tpl_mat = np.full((nb, Tpad), 4, np.int8)
-            for p, b in enumerate(bidx):
-                r = pair_reads[b]
-                qs[p, :len(r)] = r
-                t = tpls[pair_tpl_idx[b]]
-                tpl_mat[p, :len(t)] = t
-            offs = np.stack([linear_offsets(int(ql), int(tl), Qpad, Wb)
-                             for ql, tl in zip(qlb, tlb)])
+            with trace.span("polish.prep"):
+                qlb = q_lens[bidx]
+                tlb = t_lens[bidx]
+                Qpad = pad_bucket(int(qlb.max()))
+                nb = len(bidx)
+                qs = np.full((nb, Qpad), 4, np.int8)
+                tpl_mat = np.full((nb, Tpad), 4, np.int8)
+                for p, b in enumerate(bidx):
+                    r = pair_reads[b]
+                    qs[p, :len(r)] = r
+                    t = tpls[pair_tpl_idx[b]]
+                    tpl_mat[p, :len(t)] = t
+                offs = np.stack([linear_offsets(int(ql), int(tl), Qpad, Wb)
+                                 for ql, tl in zip(qlb, tlb)])
+                seg_ids = np.array([loc[pair_tpl_idx[b]] for b in bidx],
+                                   np.int32)
             # per-template gain totals reduce on the device and accumulate
             # across band buckets; the final fetch is the top-k candidates
-            seg_ids = np.array([loc[pair_tpl_idx[b]] for b in bidx],
-                               np.int32)
             lk, tot = modification_table_pileup_pallas(
                 qs, tpl_mat, offs, qlb, tlb, params, Wb, Tpad,
                 strands=pair_strand[bidx], params_rev=params_rev,
@@ -279,27 +276,24 @@ def polish_many(templates: list, pileups: list, params: PHMMParams,
         sparse = None
         if tot_dev is not None:
             sparse = finish_gains(tot_dev, len(idxs), SPARSE_K, min_gain)
-        logger.debug("polish_many round: %d tpls, %d pairs, buckets %s, "
-                     "%d dropped (%.1fs)", len(idxs), Bp,
-                     [(w, len(ix)) for w, ix in buckets], len(dropped),
-                     time.time() - _t_round)
         progressed = False
-        for i in idxs:
-            edits = []
-            if sparse is not None:
-                p = loc[i]
-                if sparse.counts[p] <= sparse.k:
-                    edits = choose_edits_sparse(
-                        sparse.idx[p], sparse.ev[p], sparse.vals[p],
-                        len(tpls[i]), min_gain, spacing)
-                else:  # rare: more candidates than k — fetch that row dense
-                    edits = choose_edits(sparse.dense_row(p), len(tpls[i]),
-                                         min_gain, spacing)
-            if edits:
-                tpls[i] = apply_edits(tpls[i], edits)
-                progressed = True
-            else:
-                active[i] = False
+        with trace.span("polish.edits"):
+            for i in idxs:
+                edits = []
+                if sparse is not None:
+                    p = loc[i]
+                    if sparse.counts[p] <= sparse.k:
+                        edits = choose_edits_sparse(
+                            sparse.idx[p], sparse.ev[p], sparse.vals[p],
+                            len(tpls[i]), min_gain, spacing)
+                    else:  # rare: more candidates than k — fetch that row
+                        edits = choose_edits(sparse.dense_row(p),
+                                             len(tpls[i]), min_gain, spacing)
+                if edits:
+                    tpls[i] = apply_edits(tpls[i], edits)
+                    progressed = True
+                else:
+                    active[i] = False
         if not progressed:
             break
     return tpls, lks

@@ -15,6 +15,7 @@ import logging
 import os
 import time
 
+from . import trace
 from .datamodel import Coverage, DataSet
 
 logger = logging.getLogger(__name__)
@@ -138,7 +139,8 @@ def run_pipeline(config: PipelineConfig) -> str:
                 logger.info("phase %s: resume from %s", name, path)
                 return DataSet.load(path)
         t0 = time.time()
-        ds = fn(ds)
+        with trace.span(f"pipeline.{name}"):
+            ds = fn(ds)
         ds.dump(path)
         timings[name] = time.time() - t0
         logger.info("phase %s: %.1fs", name, timings[name])
@@ -214,10 +216,13 @@ def run_pipeline(config: PipelineConfig) -> str:
     # --- assemble ---
     out_gfa = f"{stem}.gfa"
     t0 = time.time()
-    assemble(ds, out_path=out_gfa, to_polish=config.to_polish,
-             window_size=config.polish_window_size, seed=config.seed,
-             dump_prefix=stem if config.to_polish else None,
-             gfa2=config.gfa2)
+    with trace.span("pipeline.assemble"):
+        assemble(ds, out_path=out_gfa, to_polish=config.to_polish,
+                 window_size=config.polish_window_size, seed=config.seed,
+                 dump_prefix=stem if config.to_polish else None,
+                 gfa2=config.gfa2)
     timings["assemble"] = time.time() - t0
     dump_timings()
+    if trace.active():
+        trace.write(f"{stem}.spans.tsv")
     return out_gfa

@@ -21,6 +21,7 @@ import logging
 import numpy as np
 
 from .. import seq as seqmod
+from .. import trace
 from ..datamodel import DataSet, ReadType
 from ..ops.banded_align import edit_align, linear_offsets
 from ..ops.phmm import PHMMParams
@@ -271,74 +272,74 @@ def dump_sam(ds: DataSet, contigs, path: str, names=None, W: int = 128,
     assemble phase.  Bucketing holds the compiled-shape count at ~a dozen
     and lets device compute overlap host decode."""
     from ..ops.banded_align import collect_align_cigar, dispatch_align_cigar
-    import time as _time
-    t0 = _time.time()
-    per_contig = _read_anchors(ds, contigs)
-    # ---- gather every candidate alignment across contigs ----
-    entries = []  # (ci, rid, sign, seg, cs, tpl)
-    for ci, contig in enumerate(contigs):
-        cseq = seqmod.encode(contig["seq"])
-        aligns = per_contig.get(ci, [])
-        if max_reads:
-            aligns = aligns[:max_reads]
-        for ri, sign, chain in aligns:
-            er = ds.encoded_reads[ri]
-            codes = seqmod.encode(er.recover_raw_read())
-            rs = min(a[0] for a in chain)
-            re_ = max(a[1] for a in chain)
-            cs = min(a[2] for a in chain)
-            ce = min(max(a[3] for a in chain), len(cseq))
-            seg = codes[rs:re_]
-            if sign < 0:
-                seg = seqmod.revcomp(seg)
-            tpl = cseq[cs:ce]
-            if len(seg) < 32 or len(tpl) < 32 or \
-                    len(tpl) - len(seg) > len(tpl) // 3:
-                continue
-            entries.append((ci, er.id, sign, seg, cs, tpl))
-    # ---- group by padded-shape bucket ----
-    def bucket(n, lo=2048):
-        b = lo
-        while b < n:
-            b *= 2
-        return b
+    with trace.span("dump_sam"):
+        per_contig = _read_anchors(ds, contigs)
+        # ---- gather every candidate alignment across contigs ----
+        entries = []  # (ci, rid, sign, seg, cs, tpl)
+        for ci, contig in enumerate(contigs):
+            cseq = seqmod.encode(contig["seq"])
+            aligns = per_contig.get(ci, [])
+            if max_reads:
+                aligns = aligns[:max_reads]
+            for ri, sign, chain in aligns:
+                er = ds.encoded_reads[ri]
+                codes = seqmod.encode(er.recover_raw_read())
+                rs = min(a[0] for a in chain)
+                re_ = max(a[1] for a in chain)
+                cs = min(a[2] for a in chain)
+                ce = min(max(a[3] for a in chain), len(cseq))
+                seg = codes[rs:re_]
+                if sign < 0:
+                    seg = seqmod.revcomp(seg)
+                tpl = cseq[cs:ce]
+                if len(seg) < 32 or len(tpl) < 32 or \
+                        len(tpl) - len(seg) > len(tpl) // 3:
+                    continue
+                entries.append((ci, er.id, sign, seg, cs, tpl))
+        # ---- group by padded-shape bucket ----
+        def bucket(n, lo=2048):
+            b = lo
+            while b < n:
+                b *= 2
+            return b
 
-    groups: dict = {}
-    for ei, (_ci, _rid, _sign, seg, _cs, tpl) in enumerate(entries):
-        deficit = max(len(tpl) - len(seg), 0)
-        wb = max(W, 128)
-        while wb - 64 < deficit and wb < 2048:
-            wb *= 2
-        if len(tpl) - len(seg) >= wb - 1:
-            continue  # pathological; no SAM line (matches old ok=False skip)
-        groups.setdefault((bucket(len(seg)), bucket(len(tpl)), wb),
-                          []).append(ei)
-    # ---- dispatch all batches, then collect ----
-    cigars: dict = {}
-    handles = []
-    for (Qpad, Tpad, band), eis in sorted(groups.items()):
-        B = max(8, min(max_batch, cell_budget // (Qpad * band)))
-        for s0 in range(0, len(eis), B):
-            grp = eis[s0:s0 + B]
-            qs = np.full((len(grp), Qpad), 4, np.int8)
-            rs_arr = np.full((len(grp), Tpad), 4, np.int8)
-            offs = np.zeros((len(grp), Qpad + 1), np.int32)
-            q_lens = np.zeros(len(grp), np.int32)
-            t_lens = np.zeros(len(grp), np.int32)
+        groups: dict = {}
+        for ei, (_ci, _rid, _sign, seg, _cs, tpl) in enumerate(entries):
+            deficit = max(len(tpl) - len(seg), 0)
+            wb = max(W, 128)
+            while wb - 64 < deficit and wb < 2048:
+                wb *= 2
+            if len(tpl) - len(seg) >= wb - 1:
+                # pathological; no SAM line (matches old ok=False skip)
+                continue
+            groups.setdefault((bucket(len(seg)), bucket(len(tpl)), wb),
+                              []).append(ei)
+        # ---- dispatch all batches, then collect ----
+        cigars: dict = {}
+        handles = []
+        for (Qpad, Tpad, band), eis in sorted(groups.items()):
+            B = max(8, min(max_batch, cell_budget // (Qpad * band)))
+            for s0 in range(0, len(eis), B):
+                grp = eis[s0:s0 + B]
+                qs = np.full((len(grp), Qpad), 4, np.int8)
+                rs_arr = np.full((len(grp), Tpad), 4, np.int8)
+                offs = np.zeros((len(grp), Qpad + 1), np.int32)
+                q_lens = np.zeros(len(grp), np.int32)
+                t_lens = np.zeros(len(grp), np.int32)
+                for b, ei in enumerate(grp):
+                    seg, tpl = entries[ei][3], entries[ei][5]
+                    qs[b, :len(seg)] = seg
+                    rs_arr[b, :len(tpl)] = tpl
+                    q_lens[b], t_lens[b] = len(seg), len(tpl)
+                    offs[b] = linear_offsets(len(seg), len(tpl), Qpad, band)
+                handles.append((grp, dispatch_align_cigar(
+                    qs, rs_arr, offs, q_lens, t_lens, band, "global")))
+        for grp, h in handles:
+            res = collect_align_cigar(h)
             for b, ei in enumerate(grp):
-                seg, tpl = entries[ei][3], entries[ei][5]
-                qs[b, :len(seg)] = seg
-                rs_arr[b, :len(tpl)] = tpl
-                q_lens[b], t_lens[b] = len(seg), len(tpl)
-                offs[b] = linear_offsets(len(seg), len(tpl), Qpad, band)
-            handles.append((grp, dispatch_align_cigar(
-                qs, rs_arr, offs, q_lens, t_lens, band, "global")))
-    for grp, h in handles:
-        res = collect_align_cigar(h)
-        for b, ei in enumerate(grp):
-            cigars[ei] = res["cigar"][b]
-    logger.info("dump_sam: %d alignments, %d shape buckets (%.1fs)",
-                len(entries), len(groups), _time.time() - t0)
+                cigars[ei] = res["cigar"][b]
+    logger.info("dump_sam: %d alignments, %d shape buckets", len(entries),
+                len(groups))
     # ---- emit in per-contig order ----
     with open(path, "w") as f:
         f.write("@HD\tVN:1.6\tSO:unsorted\n")
@@ -519,7 +520,6 @@ def polish_contigs(ds: DataSet, contigs, window: int = 2000,
                   for er in ds.encoded_reads]
     rng = np.random.default_rng(seed)
     cseqs = {}
-    import time as _time
     # windows whose template changed in the previous round, per contig:
     # {ci: (n_win, set(wi))}.  A window is re-polished only while it or a
     # neighbour is still moving — converged regions of the contig drop out
@@ -529,141 +529,141 @@ def polish_contigs(ds: DataSet, contigs, window: int = 2000,
     # at 1 Mb scale)
     changed_prev = None
     for _round in range(rounds):
-        t_round = _time.time()
-        per_contig = _read_anchors(ds, contigs)
-        any_change = False
-        # ---- 1. gather every window of every contig (host) ----
-        win_jobs = []
-        nwin_ci = {}
-        for ci, contig in enumerate(contigs):
-            cseq = seqmod.encode(contig["seq"])
-            cseqs[ci] = cseq
-            if len(cseq) < 100:
-                continue
-            aligns = per_contig.get(ci, [])
-            if not aligns:
-                continue
-            n_win = max((len(cseq) + window - 1) // window, 1)
-            nwin_ci[ci] = n_win
-            prev = changed_prev.get(ci) if changed_prev is not None else None
-            stable_grid = prev is not None and prev[0] == n_win
-            spans = [(min(a[2] for a in chain), max(a[3] for a in chain))
-                     for _ri, _sign, chain in aligns]
-            for wi in range(n_win):
-                w0 = wi * window
-                w1 = min(w0 + window, len(cseq))
-                ext0 = max(w0 - overlap, 0)
-                ext1 = min(w1 + overlap, len(cseq))
-                skip = stable_grid and \
-                    not ({wi - 1, wi, wi + 1} & prev[1])
-                # terminal windows: polish only the min_cov-covered
-                # subrange and keep the uncovered flanks raw
-                s0, s1 = _terminal_shrink(
-                    [s for s in spans if s[1] > ext0 and s[0] < ext1],
-                    ext0, ext1, w0, w1, n_win, wi, min_cov)
-                template = cseq[s0:s1]
-                segs, strands = [], []
-                if not skip:
-                    for (ri, sign, chain), (cs0, ce1) in zip(aligns, spans):
-                        if ce1 <= s0 or cs0 >= s1:
-                            continue
-                        if cs0 > s0 + 50 or ce1 < s1 - 50:
-                            continue
-                        seg = _window_segment(read_codes[ri], sign, chain,
-                                              s0, s1, margin)
-                        if seg is not None:
-                            segs.append(seg)
-                            strands.append(sign > 0)
-                    if len(segs) > cap:
-                        idx = rng.permutation(len(segs))[:cap]
-                        segs = [segs[i] for i in idx]
-                        strands = [strands[i] for i in idx]
-                win_jobs.append(dict(ci=ci, wi=wi, ext0=ext0, ext1=ext1,
-                                     s0=s0, s1=s1, template=template,
-                                     segs=segs, strands=strands,
-                                     skip=skip, was_changed=False))
-        if not win_jobs:
-            break
-        n_skip = sum(j["skip"] for j in win_jobs)
-        logger.info("consensus round %d: %d windows gathered, %d converged-"
-                    "skipped (%.1fs)", _round, len(win_jobs), n_skip,
-                    _time.time() - t_round)
-        # ---- 2. batched segment trimming across all active windows ----
-        t_trim = _time.time()
-        act = [j for j in win_jobs if not j["skip"]]
-        kept = trim_segments_multi(
-            [(j["template"], j["segs"]) for j in act], margin)
-        for j, kp in zip(act, kept):
-            j["segs"] = [s for s, _i in kp]
-            j["strands"] = [j["strands"][i] for _s, i in kp]
-        logger.info("consensus round %d: trim done (%.1fs)",
-                    _round, _time.time() - t_trim)
-        # ---- 3. batched polish (grouped to bound host-side prep) ----
-        poll = [j for j in act if len(j["segs"]) >= min_cov]
-        if poll:
-            t_pol = _time.time()
-            band = max(ReadType.band_width(
-                ds.read_type, max(len(j["template"]) for j in poll)), 64)
-            band = ((band + 127) // 128) * 128
-            for g0 in range(0, len(poll), polish_group):
-                grp = poll[g0:g0 + polish_group]
-                tpls, _ = polish_many(
-                    [j["template"] for j in grp],
-                    [j["segs"] for j in grp], params_f, W=band,
-                    max_rounds=6,
-                    strands=[np.array(j["strands"], bool) for j in grp],
-                    params_rev=params_r)
-                for j, t in zip(grp, tpls):
-                    t = np.asarray(t, np.int8)
-                    if len(t) != len(j["template"]) or \
-                            not np.array_equal(t, j["template"]):
-                        j["was_changed"] = True
-                    j["template"] = t
-                logger.info("consensus round %d: polished %d/%d windows "
-                            "(%.1fs)", _round, min(g0 + polish_group,
-                                                   len(poll)), len(poll),
-                            _time.time() - t_pol)
-        # ---- 4. per contig: raw flanks + batched stitches + re-anchor ----
-        by_ci: dict[int, list] = {}
-        for j in win_jobs:
-            cseq = cseqs[j["ci"]]
-            tpl = j["template"]
-            if j["s0"] > j["ext0"]:
-                tpl = np.concatenate([cseq[j["ext0"]:j["s0"]], tpl])
-            if j["s1"] < j["ext1"]:
-                tpl = np.concatenate([tpl, cseq[j["s1"]:j["ext1"]]])
-            j["template"] = tpl
-            by_ci.setdefault(j["ci"], []).append(j)
-        for ci, jobs in by_ci.items():
-            contig = contigs[ci]
-            cseq = cseqs[ci]
-            parts = [j["template"] for j in jobs]
-            tail_cut, head_chop = _stitch_cuts_batch(parts, overlap)
-            pieces, old_starts, new_starts = [], [], []
-            pos = 0
-            for j, p, tc, hc in zip(jobs, parts, tail_cut, head_chop):
-                old_starts.append(j["ext0"])
-                new_starts.append(pos - hc)
-                pieces.append(p[hc:tc])
-                pos += tc - hc
-            out = np.concatenate(pieces) if pieces else cseq
-            new_seq = seqmod.decode(out).decode()
-            if new_seq != contig["seq"]:
-                any_change = True
-            for t in contig.get("tiles", []):
-                t["_old_start"], t["_old_end"] = t["start"], t["end"]
-            _remap_tiles(contig, old_starts, new_starts, len(cseq),
-                         len(out))
-            _reanchor_tiles(contig, cseq, out)
-            contig["seq"] = new_seq
-        changed_prev = {ci: (nwin_ci[ci],
-                             {j["wi"] for j in jobs if j["was_changed"]})
-                        for ci, jobs in by_ci.items()}
-        n_changed = sum(len(v[1]) for v in changed_prev.values())
-        logger.info("consensus round %d: done (%.1fs, changed=%s, "
-                    "%d windows moved)", _round, _time.time() - t_round,
-                    any_change, n_changed)
-        if not any_change:
-            break
+        with trace.span("consensus.round"):
+            per_contig = _read_anchors(ds, contigs)
+            any_change = False
+            # ---- 1. gather every window of every contig (host) ----
+            win_jobs = []
+            nwin_ci = {}
+            for ci, contig in enumerate(contigs):
+                cseq = seqmod.encode(contig["seq"])
+                cseqs[ci] = cseq
+                if len(cseq) < 100:
+                    continue
+                aligns = per_contig.get(ci, [])
+                if not aligns:
+                    continue
+                n_win = max((len(cseq) + window - 1) // window, 1)
+                nwin_ci[ci] = n_win
+                prev = changed_prev.get(ci) if changed_prev is not None \
+                    else None
+                stable_grid = prev is not None and prev[0] == n_win
+                spans = [(min(a[2] for a in chain), max(a[3] for a in chain))
+                         for _ri, _sign, chain in aligns]
+                for wi in range(n_win):
+                    w0 = wi * window
+                    w1 = min(w0 + window, len(cseq))
+                    ext0 = max(w0 - overlap, 0)
+                    ext1 = min(w1 + overlap, len(cseq))
+                    skip = stable_grid and \
+                        not ({wi - 1, wi, wi + 1} & prev[1])
+                    # terminal windows: polish only the min_cov-covered
+                    # subrange and keep the uncovered flanks raw
+                    s0, s1 = _terminal_shrink(
+                        [s for s in spans if s[1] > ext0 and s[0] < ext1],
+                        ext0, ext1, w0, w1, n_win, wi, min_cov)
+                    template = cseq[s0:s1]
+                    segs, strands = [], []
+                    if not skip:
+                        for (ri, sign, chain), (cs0, ce1) in zip(aligns,
+                                                                 spans):
+                            if ce1 <= s0 or cs0 >= s1:
+                                continue
+                            if cs0 > s0 + 50 or ce1 < s1 - 50:
+                                continue
+                            seg = _window_segment(read_codes[ri], sign, chain,
+                                                  s0, s1, margin)
+                            if seg is not None:
+                                segs.append(seg)
+                                strands.append(sign > 0)
+                        if len(segs) > cap:
+                            idx = rng.permutation(len(segs))[:cap]
+                            segs = [segs[i] for i in idx]
+                            strands = [strands[i] for i in idx]
+                    win_jobs.append(dict(ci=ci, wi=wi, ext0=ext0, ext1=ext1,
+                                         s0=s0, s1=s1, template=template,
+                                         segs=segs, strands=strands,
+                                         skip=skip, was_changed=False))
+            if not win_jobs:
+                break
+            n_skip = sum(j["skip"] for j in win_jobs)
+            logger.info("consensus round %d: %d windows gathered, %d "
+                        "converged-skipped", _round, len(win_jobs), n_skip)
+            # ---- 2. batched segment trimming across all active windows ----
+            with trace.span("consensus.trim"):
+                act = [j for j in win_jobs if not j["skip"]]
+                kept = trim_segments_multi(
+                    [(j["template"], j["segs"]) for j in act], margin)
+                for j, kp in zip(act, kept):
+                    j["segs"] = [s for s, _i in kp]
+                    j["strands"] = [j["strands"][i] for _s, i in kp]
+            # ---- 3. batched polish (grouped to bound host-side prep) ----
+            poll = [j for j in act if len(j["segs"]) >= min_cov]
+            if poll:
+                with trace.span("consensus.polish"):
+                    band = max(ReadType.band_width(
+                        ds.read_type, max(len(j["template"]) for j in poll)),
+                        64)
+                    band = ((band + 127) // 128) * 128
+                    for g0 in range(0, len(poll), polish_group):
+                        grp = poll[g0:g0 + polish_group]
+                        tpls, _ = polish_many(
+                            [j["template"] for j in grp],
+                            [j["segs"] for j in grp], params_f, W=band,
+                            max_rounds=6,
+                            strands=[np.array(j["strands"], bool)
+                                     for j in grp],
+                            params_rev=params_r)
+                        for j, t in zip(grp, tpls):
+                            t = np.asarray(t, np.int8)
+                            if len(t) != len(j["template"]) or \
+                                    not np.array_equal(t, j["template"]):
+                                j["was_changed"] = True
+                            j["template"] = t
+                        logger.info("consensus round %d: polished %d/%d "
+                                    "windows", _round,
+                                    min(g0 + polish_group, len(poll)),
+                                    len(poll))
+            # ---- 4. per contig: raw flanks + batched stitches + re-anchor
+            by_ci: dict[int, list] = {}
+            for j in win_jobs:
+                cseq = cseqs[j["ci"]]
+                tpl = j["template"]
+                if j["s0"] > j["ext0"]:
+                    tpl = np.concatenate([cseq[j["ext0"]:j["s0"]], tpl])
+                if j["s1"] < j["ext1"]:
+                    tpl = np.concatenate([tpl, cseq[j["s1"]:j["ext1"]]])
+                j["template"] = tpl
+                by_ci.setdefault(j["ci"], []).append(j)
+            for ci, jobs in by_ci.items():
+                contig = contigs[ci]
+                cseq = cseqs[ci]
+                parts = [j["template"] for j in jobs]
+                tail_cut, head_chop = _stitch_cuts_batch(parts, overlap)
+                pieces, old_starts, new_starts = [], [], []
+                pos = 0
+                for j, p, tc, hc in zip(jobs, parts, tail_cut, head_chop):
+                    old_starts.append(j["ext0"])
+                    new_starts.append(pos - hc)
+                    pieces.append(p[hc:tc])
+                    pos += tc - hc
+                out = np.concatenate(pieces) if pieces else cseq
+                new_seq = seqmod.decode(out).decode()
+                if new_seq != contig["seq"]:
+                    any_change = True
+                for t in contig.get("tiles", []):
+                    t["_old_start"], t["_old_end"] = t["start"], t["end"]
+                _remap_tiles(contig, old_starts, new_starts, len(cseq),
+                             len(out))
+                _reanchor_tiles(contig, cseq, out)
+                contig["seq"] = new_seq
+            changed_prev = {ci: (nwin_ci[ci],
+                                 {j["wi"] for j in jobs if j["was_changed"]})
+                            for ci, jobs in by_ci.items()}
+            n_changed = sum(len(v[1]) for v in changed_prev.values())
+            logger.info("consensus round %d: done (changed=%s, %d windows "
+                        "moved)", _round, any_change, n_changed)
+            if not any_change:
+                break
     ds.push_stage("PolishContigs", [])
     return contigs

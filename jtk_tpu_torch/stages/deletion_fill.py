@@ -26,6 +26,7 @@ from collections import defaultdict
 import numpy as np
 
 from .. import seq as seqmod
+from .. import trace
 from ..datamodel import DataSet, Node
 from ..mapper import Candidate, extend_candidates
 from .encode import _node_from_result
@@ -332,9 +333,23 @@ def correct_deletion(ds: DataSet, re_cluster: bool = False,
 
 def _fill_once(ds, chunk_seqs, chunk_ascii, erm, failed, alive, read_ascii,
                read_codes, margin, W, changed_chunks) -> int:
-    import time as _time
-    _t0 = _time.time()
-    skels = [_skeleton(er) for er in ds.encoded_reads]
+    with trace.span("deletion_fill.pairs"):
+        skels = [_skeleton(er) for er in ds.encoded_reads]
+        pairs = _skeleton_pairs(ds, skels, alive)
+    if not pairs:
+        return 0
+    per_read_aligned = defaultdict(list)
+    with trace.span("deletion_fill.dp"):
+        if not _align_pairs_native(skels, pairs, per_read_aligned):
+            _align_pairs_numpy(skels, pairs, per_read_aligned)
+    return _apply_alignments(ds, chunk_seqs, chunk_ascii, erm, failed,
+                             alive, read_ascii, read_codes, margin, W,
+                             changed_chunks, pairs, per_read_aligned)
+
+
+def _skeleton_pairs(ds, skels, alive) -> list:
+    """(target, query, is_forward) of every pair of live reads that share
+    enough (chunk, cluster, direction) keys, in either orientation."""
     n_reads = len(skels)
     # chunk-match prefilter: shared (chunk, cluster, dir) keys
     by_key = defaultdict(list)
@@ -367,17 +382,12 @@ def _fill_once(ds, chunk_seqs, chunk_ascii, erm, failed, alive, read_ascii,
             f, r = fwd_hits.get(qi, 0), rev_hits.get(qi, 0)
             if max(f, r) >= min_match:
                 pairs.append((ri, qi, r <= f))
-    if not pairs:
-        return 0
-    _t1 = _time.time()
-    per_read_aligned = defaultdict(list)
-    if _align_pairs_native(skels, pairs, per_read_aligned):
-        logger.info("deletion_fill: pair build %.1fs, native dp %.1fs",
-                    _t1 - _t0, _time.time() - _t1)
-        return _apply_alignments(ds, chunk_seqs, chunk_ascii, erm, failed,
-                                 alive, read_ascii, read_codes, margin, W,
-                                 changed_chunks, pairs, per_read_aligned)
-    # batched DP over pair chunks (numpy fallback)
+    return pairs
+
+
+def _align_pairs_numpy(skels, pairs, per_read_aligned) -> None:
+    """The pair DP in batches over pair chunks (the numpy fallback of
+    :func:`_align_pairs_native`, with the same filters)."""
     L = min(max((len(skels[r][0]) for r, _q, _d in pairs), default=1),
             MAX_SKEL)
     L = max(L, max((len(skels[q][0]) for _r, q, _d in pairs), default=1))
@@ -415,9 +425,6 @@ def _fill_once(ds, chunk_seqs, chunk_ascii, erm, failed, alive, read_ascii,
                     or not _is_proper(ops):
                 continue
             per_read_aligned[ri].append((q_skel_or[b], ops))
-    return _apply_alignments(ds, chunk_seqs, chunk_ascii, erm, failed,
-                             alive, read_ascii, read_codes, margin, W,
-                             changed_chunks, pairs, per_read_aligned)
 
 
 def _align_pairs_native(skels, pairs, per_read_aligned) -> bool:
@@ -462,11 +469,10 @@ def _align_pairs_native(skels, pairs, per_read_aligned) -> bool:
     return True
 
 
+@trace.span("deletion_fill.insert")
 def _apply_alignments(ds, chunk_seqs, chunk_ascii, erm, failed, alive,
                       read_ascii, read_codes, margin, W, changed_chunks,
                       pairs, per_read_aligned) -> int:
-    import time as _time
-    _tv = _time.time()
     # votes -> candidates
     cands, meta = [], []
     for ri, aligned in per_read_aligned.items():
@@ -497,10 +503,8 @@ def _apply_alignments(ds, chunk_seqs, chunk_ascii, erm, failed, alive,
                 continue
             alive[ri] = False
         return 0
-    _te = _time.time()
     results = extend_candidates(cands, read_codes, chunk_seqs, W=W,
                                 margin=margin)
-    _tr = _time.time()
     got_insert = set()
     pending = defaultdict(list)
     for res, (ri, idx, key) in zip(results, meta):
@@ -538,8 +542,6 @@ def _apply_alignments(ds, chunk_seqs, chunk_ascii, erm, failed, alive,
             changed_chunks.update(d["chunk"] for d in new)
         else:
             alive[ri] = False
-    logger.info("deletion_fill: %d pairs, %d candidates, %d inserted "
-                "(vote %.1fs, extend %.1fs, rebuild %.1fs)",
-                len(pairs), len(cands), added, _te - _tv, _tr - _te,
-                _time.time() - _tr)
+    logger.info("deletion_fill: %d pairs, %d candidates, %d inserted",
+                len(pairs), len(cands), added)
     return added

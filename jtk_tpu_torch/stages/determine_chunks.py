@@ -20,6 +20,7 @@ from collections import defaultdict
 import numpy as np
 
 from .. import seq as seqmod
+from .. import trace
 from ..datamodel import Chunk, DataSet, ReadType
 from ..mapper import ChunkIndex
 from ..ops.phmm import PHMMParams
@@ -532,64 +533,57 @@ def select_chunks(ds: DataSet, chunk_len: int = 2000, take_num: int = 500,
     fill_tips + deletion-fill, up to 10 iterations) + overlap filters +
     second polish; final re-encode + filters + third polish + repetitiveness
     screen; then in-select purge_largeindel + id compaction."""
-    import time as _time
-
-    _marks = [("start", _time.time())]
-
-    def _mark(label):
-        _marks.append((label, _time.time()))
-        logger.info("select_chunks: %s %.1fs", label,
-                    _marks[-1][1] - _marks[-2][1])
-
     rng = np.random.default_rng(seed)
     encode_kwargs = encode_kwargs or {}
-    seqs = pick_random_windows(ds, chunk_len, take_num, margin, rng)
-    seqs = remove_overlapping_chunks(seqs)
-    ds.selected_chunks = [Chunk(i, s, 1, 2) for i, s in enumerate(seqs)]
-    logger.info("select_chunks: %d windows after overlap removal", len(seqs))
-    annot = _get_repeat_annot(ds)
-    _mark("windows")
+    with trace.span("select_chunks.windows"):
+        seqs = pick_random_windows(ds, chunk_len, take_num, margin, rng)
+        seqs = remove_overlapping_chunks(seqs)
+        ds.selected_chunks = [Chunk(i, s, 1, 2) for i, s in enumerate(seqs)]
+        logger.info("select_chunks: %d windows after overlap removal",
+                    len(seqs))
+        annot = _get_repeat_annot(ds)
     # round 1: relaxed encode + coverage + frequent-chunk purge + polish
-    relaxed = 2 * ReadType.sim_thr(ds.read_type)
-    encode(ds, sim_thr=relaxed, **encode_kwargs)
-    _mark("encode1")
-    update_coverage(ds)
-    remove_frequent_chunks(ds, purge_copy_num)
-    polish_chunks(ds)
-    compaction_chunks(ds)
-    _mark("polish1")
+    with trace.span("select_chunks.encode1"):
+        relaxed = 2 * ReadType.sim_thr(ds.read_type)
+        encode(ds, sim_thr=relaxed, **encode_kwargs)
+    with trace.span("select_chunks.polish1"):
+        update_coverage(ds)
+        remove_frequent_chunks(ds, purge_copy_num)
+        polish_chunks(ds)
+        compaction_chunks(ds)
     # round 2: encode + densification loop + overlap filters + polish
-    encode(ds, sim_thr=None, **encode_kwargs)
-    _mark("encode2")
-    thr = max(calc_sim_thr(ds), ReadType.sim_thr(ds.read_type))
-    logger.info("select_chunks: calibrated sim_thr=%.3f", thr)
-    from .deletion_fill import correct_deletion
-    for _ in range(10):
-        new = fill_sparse_region(ds, annot, chunk_len, exclude_repeats,
-                                 seed=seed) \
-            + fill_tips(ds, annot, chunk_len, exclude_repeats, seed=seed + 1)
-        correct_deletion(ds)
-        if new < MIN_REQ_NEW_CHUNK:
-            break
-    _mark("densify")
-    compaction_chunks(ds)
-    update_coverage(ds)
-    remove_frequent_chunks(ds, purge_copy_num)
-    filter_chunk_by_ovlp(ds, chunk_len)
-    polish_chunks(ds)
-    compaction_chunks(ds)
-    _mark("polish2")
+    with trace.span("select_chunks.encode2"):
+        encode(ds, sim_thr=None, **encode_kwargs)
+    with trace.span("select_chunks.densify"):
+        thr = max(calc_sim_thr(ds), ReadType.sim_thr(ds.read_type))
+        logger.info("select_chunks: calibrated sim_thr=%.3f", thr)
+        from .deletion_fill import correct_deletion
+        for _ in range(10):
+            new = fill_sparse_region(ds, annot, chunk_len, exclude_repeats,
+                                     seed=seed) \
+                + fill_tips(ds, annot, chunk_len, exclude_repeats,
+                            seed=seed + 1)
+            correct_deletion(ds)
+            if new < MIN_REQ_NEW_CHUNK:
+                break
+    with trace.span("select_chunks.polish2"):
+        compaction_chunks(ds)
+        update_coverage(ds)
+        remove_frequent_chunks(ds, purge_copy_num)
+        filter_chunk_by_ovlp(ds, chunk_len)
+        polish_chunks(ds)
+        compaction_chunks(ds)
     # round 3: re-encode against polished chunks with calibrated threshold
-    encode(ds, sim_thr=thr, **encode_kwargs)
-    _mark("encode3")
-    thr = max(calc_sim_thr(ds), ReadType.sim_thr(ds.read_type))
-    update_coverage(ds)
-    remove_frequent_chunks(ds, purge_copy_num)
-    filter_chunk_by_ovlp(ds, chunk_len)
-    compaction_chunks(ds)
-    encode(ds, sim_thr=thr, **encode_kwargs)
-    update_coverage(ds)
-    _mark("encode4")
+    with trace.span("select_chunks.encode3"):
+        encode(ds, sim_thr=thr, **encode_kwargs)
+    with trace.span("select_chunks.encode4"):
+        thr = max(calc_sim_thr(ds), ReadType.sim_thr(ds.read_type))
+        update_coverage(ds)
+        remove_frequent_chunks(ds, purge_copy_num)
+        filter_chunk_by_ovlp(ds, chunk_len)
+        compaction_chunks(ds)
+        encode(ds, sim_thr=thr, **encode_kwargs)
+        update_coverage(ds)
     # repetitiveness screen (determine_chunks.rs:170-172)
     rep_drop = {c.id for c in ds.selected_chunks
                 if annot.repetitiveness(c.codes()) >= exclude_repeats}

@@ -15,6 +15,7 @@ from __future__ import annotations
 import logging
 
 from .. import seq as seqmod
+from .. import trace
 from ..datamodel import DataSet, Edge, EncodedRead, Node, ReadType
 from ..mapper import ChunkIndex, extend_candidates, flip_cigar
 
@@ -102,38 +103,35 @@ def encode(ds: DataSet, sim_thr: float | None = None, margin: int = 200,
     k_rt, hpc = ReadType.mapper_params(ds.read_type)
     if k is None:
         k = k_rt
-    import time as _time
+    trace.count("encode.reads", len(ds.raw_reads))
     chunk_seqs = {c.id: c.codes() for c in ds.selected_chunks}
     cluster_num = {c.id: c.cluster_num for c in ds.selected_chunks}
-    _t0 = _time.time()
     index = ChunkIndex(chunk_seqs, k=k, hpc=hpc)
     read_ascii = [r.seq for r in ds.raw_reads]
     read_codes = [seqmod.encode(s) for s in read_ascii]
-    _t1 = _time.time()
     cands = index.candidates_batch(read_codes, min_hits=min_hits,
                                    margin=margin, stride=stride)
-    _t2 = _time.time()
+    logger.info("encode: %d candidates", len(cands))
     results = extend_candidates(cands, read_codes, chunk_seqs, W=W,
                                 margin=margin)
-    _t3 = _time.time()
-    logger.info("encode: index+pack %.2fs, candidates %.2fs (%d), "
-                "extend %.2fs", _t1 - _t0, _t2 - _t1, len(cands), _t3 - _t2)
-    per_read: dict[int, list] = {}
-    for res in results:
-        c = res["cand"]
-        clen = len(chunk_seqs[c.chunk_id])
-        if res["dist"] > sim_thr * clen:
-            continue
-        n = _node_from_result(res, read_codes, read_ascii)
-        if n is None:
-            continue
-        per_read.setdefault(c.read_idx, []).append(n)
-    encoded = []
-    for i, r in enumerate(ds.raw_reads):
-        nodes = _dedup_nodes(per_read.get(i, []))
-        er = nodes_to_encoded_read(r.id, read_ascii[i], nodes, cluster_num)
-        if er is not None:
-            encoded.append(er)
+    with trace.span("encode.nodes"):
+        per_read: dict[int, list] = {}
+        for res in results:
+            c = res["cand"]
+            clen = len(chunk_seqs[c.chunk_id])
+            if res["dist"] > sim_thr * clen:
+                continue
+            n = _node_from_result(res, read_codes, read_ascii)
+            if n is None:
+                continue
+            per_read.setdefault(c.read_idx, []).append(n)
+        encoded = []
+        for i, r in enumerate(ds.raw_reads):
+            nodes = _dedup_nodes(per_read.get(i, []))
+            er = nodes_to_encoded_read(r.id, read_ascii[i], nodes,
+                                       cluster_num)
+            if er is not None:
+                encoded.append(er)
     ds.encoded_reads = encoded
     ds.push_stage("Encode", [f"sim_thr={sim_thr}"])
     return ds

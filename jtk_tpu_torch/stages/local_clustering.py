@@ -17,11 +17,11 @@ MCMC across ALL chunks per candidate k as parallel lanes of one chain.
 from __future__ import annotations
 
 import logging
-import time
 
 import numpy as np
 
 from .. import seq as seqmod
+from .. import trace
 from ..datamodel import DataSet, ReadType
 from ..ops.banded_align import linear_offsets
 from ..ops.cluster import POS_THR, mcmc_cluster_batch, poisson_size_table, used_columns_and_gains
@@ -292,6 +292,7 @@ def _k_range(copy_num: int, n_variants: int):
     return list(range(max(start, 2), end + 1))
 
 
+@trace.span("clustering.mcmc", device=True)
 def cluster_chunks_mcmc(features: dict, coverage: float, seed: int,
                         restarts: int = 20, flips_per_read: int = 2000,
                         max_steps: int = 100_000):
@@ -492,6 +493,7 @@ def _use_highest_gain(X: np.ndarray):
     return asn, sc
 
 
+@trace.span("clustering.features", device=True)
 def _variant_features_device(per_chunk, params_f, params_r, band, Tpad,
                              gains, coverage, copy_nums):
     """From pileups to clustering features without fetching per-read
@@ -526,42 +528,44 @@ def _variant_features_device(per_chunk, params_f, params_r, band, Tpad,
                 group, params_f, params_r, band, Tpad, gains, coverage,
                 copy_nums))
         return out
-    order = list(per_chunk)
-    pair_cid, pair_reads, pair_strand, pair_tpl, seg_ids = [], [], [], [], []
-    for pos_c, cid in enumerate(order):
-        reads, strands, template = per_chunk[cid]
-        for r, s in zip(reads, strands):
-            pair_cid.append(cid)
-            pair_reads.append(r)
-            pair_strand.append(bool(s))
-            pair_tpl.append(template)
-            seg_ids.append(pos_c)
-    if not pair_reads:
-        return {}
     from ..ops.polish import band_buckets, pad_bucket
-    q_lens = np.array([len(r) for r in pair_reads], np.int32)
-    t_lens = np.array([len(t) for t in pair_tpl], np.int32)
-    Bp = len(pair_reads)
-    pair_strand = np.asarray(pair_strand, bool)
-    seg_ids = np.asarray(seg_ids)
-    exp_info = {cid: variant_exp_mat(per_chunk[cid][2], gains, Tpad + 1)
-                for cid in order}
-    exp_mats = np.stack([exp_info[cid][0] for cid in order])
-    _t0 = time.time()
-    buckets, _dropped = band_buckets(q_lens, t_lens, band)
+    with trace.span("clustering.features.prep"):
+        order = list(per_chunk)
+        pair_cid, pair_reads, pair_strand, pair_tpl, seg_ids = \
+            [], [], [], [], []
+        for pos_c, cid in enumerate(order):
+            reads, strands, template = per_chunk[cid]
+            for r, s in zip(reads, strands):
+                pair_cid.append(cid)
+                pair_reads.append(r)
+                pair_strand.append(bool(s))
+                pair_tpl.append(template)
+                seg_ids.append(pos_c)
+        if not pair_reads:
+            return {}
+        q_lens = np.array([len(r) for r in pair_reads], np.int32)
+        t_lens = np.array([len(t) for t in pair_tpl], np.int32)
+        Bp = len(pair_reads)
+        pair_strand = np.asarray(pair_strand, bool)
+        seg_ids = np.asarray(seg_ids)
+        exp_info = {cid: variant_exp_mat(per_chunk[cid][2], gains, Tpad + 1)
+                    for cid in order}
+        exp_mats = np.stack([exp_info[cid][0] for cid in order])
+        buckets, _dropped = band_buckets(q_lens, t_lens, band)
     stats = None
     bucket_gathers = []  # (bidx, gather)
     for Wb, bidx in buckets:
-        qlb, tlb = q_lens[bidx], t_lens[bidx]
-        Qpad = pad_bucket(int(qlb.max()))
-        nb = len(bidx)
-        qs = np.full((nb, Qpad), 4, np.int8)
-        tpl_mat = np.full((nb, Tpad), 4, np.int8)
-        for p, b in enumerate(bidx):
-            qs[p, :len(pair_reads[b])] = pair_reads[b]
-            tpl_mat[p, :len(pair_tpl[b])] = pair_tpl[b]
-        offs = np.stack([linear_offsets(int(ql), int(tl), Qpad, Wb)
-                         for ql, tl in zip(qlb, tlb)])
+        with trace.span("clustering.features.prep"):
+            qlb, tlb = q_lens[bidx], t_lens[bidx]
+            Qpad = pad_bucket(int(qlb.max()))
+            nb = len(bidx)
+            qs = np.full((nb, Qpad), 4, np.int8)
+            tpl_mat = np.full((nb, Tpad), 4, np.int8)
+            for p, b in enumerate(bidx):
+                qs[p, :len(pair_reads[b])] = pair_reads[b]
+                tpl_mat[p, :len(pair_tpl[b])] = pair_tpl[b]
+            offs = np.stack([linear_offsets(int(ql), int(tl), Qpad, Wb)
+                             for ql, tl in zip(qlb, tlb)])
         _lks, st, g = modtable_pileup_stats_pallas(
             qs, tpl_mat, offs, qlb, tlb, params_f, Wb, Tpad,
             pair_strand[bidx], params_r, seg_ids[bidx],
@@ -577,44 +581,43 @@ def _variant_features_device(per_chunk, params_f, params_r, band, Tpad,
             raw[bidx], comp[bidx] = r, c
         return raw, comp
 
-    _t1 = time.time()
-    cands = {}
-    for pos_c, cid in enumerate(order):
-        reads, strands, template = per_chunk[cid]
-        st = stats[pos_c]
-        counts, tot_gain = st[..., 0], st[..., 1]
-        obs = st[..., 2:6].reshape(st.shape[0], NUM_EDIT, 2, 2)
-        strands = np.asarray(strands, bool)
-        both = bool(strands.any() and (~strands).any())
-        exp_mat, hp, hp_idx = exp_info[cid]
-        cand, scores = _variant_candidates(
-            template, len(reads), counts, tot_gain, obs, both, gains,
-            coverage, copy_nums[cid], exp_mat, hp, hp_idx)
-        cands[cid] = (cand, scores)
-    union = sorted({int(c) for cand, _s in cands.values() for c in cand})
-    _t2 = time.time()
+    with trace.span("clustering.features.candidates"):
+        cands = {}
+        for pos_c, cid in enumerate(order):
+            reads, strands, template = per_chunk[cid]
+            st = stats[pos_c]
+            counts, tot_gain = st[..., 0], st[..., 1]
+            obs = st[..., 2:6].reshape(st.shape[0], NUM_EDIT, 2, 2)
+            strands = np.asarray(strands, bool)
+            both = bool(strands.any() and (~strands).any())
+            exp_mat, hp, hp_idx = exp_info[cid]
+            cand, scores = _variant_candidates(
+                template, len(reads), counts, tot_gain, obs, both, gains,
+                coverage, copy_nums[cid], exp_mat, hp, hp_idx)
+            cands[cid] = (cand, scores)
+        union = sorted({int(c) for cand, _s in cands.values() for c in cand})
     out = {}
     if not union:
         return {cid: (np.zeros(0, np.int64), None) for cid in order}
-    raw, comp = gather(np.array(union, np.int64))
-    logger.info("variant features: stats %.1fs, candidates %.1fs, "
-                "gather %.1fs (%d chunks, %d cols)",
-                _t1 - _t0, _t2 - _t1, time.time() - _t2, len(order),
+    with trace.span("clustering.features.gather", device=True):
+        raw, comp = gather(np.array(union, np.int64))
+    logger.info("variant features: %d chunks, %d cols", len(order),
                 len(union))
-    colpos = {c: i for i, c in enumerate(union)}
-    pair_cid = np.asarray(pair_cid)
-    for cid in order:
-        cand, scores = cands[cid]
-        rows = np.nonzero(pair_cid == cid)[0]
-        if len(cand) == 0:
-            out[cid] = (np.zeros(0, np.int64), None)
-            continue
-        upos = np.array([colpos[int(c)] for c in cand])
-        picked = _diversity_pick(cand, scores, comp[rows][:, upos],
-                                 copy_nums[cid])
-        cols = cand[picked]
-        X = raw[rows][:, upos[picked]].astype(np.float32)
-        out[cid] = (cols, X)
+    with trace.span("clustering.features.pick"):
+        colpos = {c: i for i, c in enumerate(union)}
+        pair_cid = np.asarray(pair_cid)
+        for cid in order:
+            cand, scores = cands[cid]
+            rows = np.nonzero(pair_cid == cid)[0]
+            if len(cand) == 0:
+                out[cid] = (np.zeros(0, np.int64), None)
+                continue
+            upos = np.array([colpos[int(c)] for c in cand])
+            picked = _diversity_pick(cand, scores, comp[rows][:, upos],
+                                     copy_nums[cid])
+            cols = cand[picked]
+            X = raw[rows][:, upos[picked]].astype(np.float32)
+            out[cid] = (cols, X)
     return out
 
 
@@ -675,45 +678,47 @@ def local_clustering(ds: DataSet, seed: int = 42, W: int | None = None,
     chunk's pileup simultaneously (the reference's rayon-per-chunk loop,
     local_clustering/mod.rs:56-121, recast as flat device batches)."""
     from ..ops.polish import polish_many
-    coverage = update_coverage(ds)
-    params_f = PHMMParams.from_hmmparam(ds.model_param.forward)
-    params_r = PHMMParams.from_hmmparam(ds.model_param.reverse)
-    gains = estimate_gains(params_f, ds.error_rate, seed=seed)
-    pileups = gather_pileups(ds)
-    chunks = {c.id: c for c in ds.selected_chunks}
-    features = {}
-    rng = np.random.default_rng(seed)
-    # gather all pileups up front
-    work = {}
-    for cid, members in pileups.items():
-        if selection is not None and cid not in selection:
-            continue
-        chunk = chunks[cid]
-        if not members:
-            chunk.cluster_num = 1
-            continue
-        reads = [seqmod.encode(ds.encoded_reads[ri].nodes[ni].seq)
-                 for ri, ni in members]
-        strands = np.array([ds.encoded_reads[ri].nodes[ni].is_forward
-                            for ri, ni in members])
-        work[cid] = (members, reads, strands)
-    if not work:
-        ds.push_stage("LocalClustering", [f"seed={seed}"])
-        return ds
-    band = W or max(max(ReadType.band_width(ds.read_type,
-                                            len(chunks[cid].seq))
-                        for cid in work), 64)
-    band = ((band + 127) // 128) * 128
-    # 1. batched polish of every chunk consensus (coverage-capped)
-    t0 = time.time()
-    order = sorted(work)
-    polish_sets = []
-    strand_sets = []
-    for cid in order:
-        _m, reads, strands = work[cid]
-        sel = rng.permutation(len(reads))[:polish_cap]
-        polish_sets.append([reads[i] for i in sel])
-        strand_sets.append(strands[sel])
+    with trace.span("clustering.pileups"):
+        coverage = update_coverage(ds)
+        params_f = PHMMParams.from_hmmparam(ds.model_param.forward)
+        params_r = PHMMParams.from_hmmparam(ds.model_param.reverse)
+        gains = estimate_gains(params_f, ds.error_rate, seed=seed)
+        pileups = gather_pileups(ds)
+        trace.count("clustering.chunks", len(pileups) if selection is None
+                    else len(pileups.keys() & selection))
+        chunks = {c.id: c for c in ds.selected_chunks}
+        features = {}
+        rng = np.random.default_rng(seed)
+        # gather all pileups up front
+        work = {}
+        for cid, members in pileups.items():
+            if selection is not None and cid not in selection:
+                continue
+            chunk = chunks[cid]
+            if not members:
+                chunk.cluster_num = 1
+                continue
+            reads = [seqmod.encode(ds.encoded_reads[ri].nodes[ni].seq)
+                     for ri, ni in members]
+            strands = np.array([ds.encoded_reads[ri].nodes[ni].is_forward
+                                for ri, ni in members])
+            work[cid] = (members, reads, strands)
+        if not work:
+            ds.push_stage("LocalClustering", [f"seed={seed}"])
+            return ds
+        band = W or max(max(ReadType.band_width(ds.read_type,
+                                                len(chunks[cid].seq))
+                            for cid in work), 64)
+        band = ((band + 127) // 128) * 128
+        # 1. batched polish of every chunk consensus (coverage-capped)
+        order = sorted(work)
+        polish_sets = []
+        strand_sets = []
+        for cid in order:
+            _m, reads, strands = work[cid]
+            sel = rng.permutation(len(reads))[:polish_cap]
+            polish_sets.append([reads[i] for i in sel])
+            strand_sets.append(strands[sel])
     tpls, _ = polish_many([chunks[cid].codes() for cid in order],
                           polish_sets, params_f, W=band,
                           strands=strand_sets, params_rev=params_r)
@@ -721,20 +726,17 @@ def local_clustering(ds: DataSet, seed: int = 42, W: int | None = None,
     for cid, tpl in zip(order, tpls):
         chunks[cid].seq = seqmod.decode(np.asarray(tpl, np.int8)).decode()
         templates[cid] = np.asarray(tpl, np.int8)
-    t_polish = time.time() - t0
-    logger.info("local_clustering: polish %.1fs (%d chunks)", t_polish,
-                len(order))
-    t0b = time.time()
+    logger.info("local_clustering: polished %d chunks", len(order))
     # 2. batched cigar refresh so node CIGARs (and every downstream error
     # model) stay in sync (reference: update_by_clusterings, mod.rs:244)
-    per_chunk = {cid: (work[cid][1], work[cid][2], templates[cid])
-                 for cid in order}
-    refreshed = _batched_refresh_cigars(per_chunk, band)
-    logger.info("local_clustering: cigar refresh %.1fs", time.time() - t0b)
-    for cid in order:
-        for (ri, ni), cg in zip(work[cid][0], refreshed[cid]):
-            if cg is not None:
-                ds.encoded_reads[ri].nodes[ni].cigar = cg
+    with trace.span("clustering.refresh", device=True):
+        per_chunk = {cid: (work[cid][1], work[cid][2], templates[cid])
+                     for cid in order}
+        refreshed = _batched_refresh_cigars(per_chunk, band)
+        for cid in order:
+            for (ri, ni), cg in zip(work[cid][0], refreshed[cid]):
+                if cg is not None:
+                    ds.encoded_reads[ri].nodes[ni].cigar = cg
     # high-copy repeats take the recursive path (rare; per-chunk calls)
     recursive_cids = [cid for cid in order
                       if chunks[cid].copy_num >= UPPER_COPY_NUM
@@ -758,7 +760,6 @@ def local_clustering(ds: DataSet, seed: int = 42, W: int | None = None,
     # stats reduce on the device and only candidate columns are fetched
     Tpad = ((max((len(t) for t in templates.values()), default=1) + 127)
             // 128) * 128
-    t0c = time.time()
     colx = _variant_features_device(
         per_chunk, params_f, params_r, band, Tpad, gains, coverage,
         {cid: chunks[cid].copy_num for cid in per_chunk})
@@ -783,12 +784,6 @@ def local_clustering(ds: DataSet, seed: int = 42, W: int | None = None,
         features[cid] = dict(X=X, copy_num=chunk.copy_num,
                              local_cov=len(reads) / max(chunk.copy_num, 1),
                              expected=expected_per_col, members=members)
-        logger.debug("RECORD\t%d\t%.0f\t%.0f\t%d\t%d\t%d", cid,
-                     (time.time() - t0) * 1e3, t_polish * 1e3,
-                     len(template), len(cols), len(reads))
-    logger.info("local_clustering: profiles+variants %.1fs",
-                time.time() - t0c)
-    t0d = time.time()
     results = cluster_chunks_mcmc(features, coverage, seed,
                                   restarts=restarts,
                                   flips_per_read=flips_per_read)
@@ -800,6 +795,5 @@ def local_clustering(ds: DataSet, seed: int = 42, W: int | None = None,
             node = ds.encoded_reads[ri].nodes[ni]
             node.cluster = int(a)
             node.posterior = [float(x) for x in p]
-    logger.info("local_clustering: mcmc %.1fs", time.time() - t0d)
     ds.push_stage("LocalClustering", [f"seed={seed}"])
     return ds

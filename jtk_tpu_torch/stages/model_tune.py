@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from .. import seq as seqmod
+from .. import trace
 from ..datamodel import DataSet, HMMParam, ReadType
 from ..ops.banded_align import linear_offsets
 from ..ops.phmm import PHMMParams, _np, likelihood_pileup
@@ -85,7 +86,8 @@ def _fit_strand(reads: list[np.ndarray], template: np.ndarray,
     prev = None
     best = theta
     for it in range(0, steps, N_INNER):
-        theta, losses = steps_fn(theta, batch, wts_d)
+        with trace.span("model_tune.steps", device=True):
+            theta, losses = steps_fn(theta, batch, wts_d)
         losses = losses.cpu().numpy().astype(np.float64)
         if not np.all(np.isfinite(losses)) or any(
                 not bool(torch.isfinite(x).all()) for x in theta.values()):

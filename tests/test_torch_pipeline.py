@@ -81,14 +81,18 @@ def test_cli_parser_covers_subcommands():
     for name, sp in subs.items():
         opts = {o for a in sp._actions for o in a.option_strings}
         jopts = {o for a in jsubs[name]._actions for o in a.option_strings}
-        # the same arguments plus --device and --devices (the device set)
-        assert opts == jopts | {"--device", "--devices"}, name
+        # the same arguments plus --device, --devices (the device set) and
+        # --trace (the spans and counters' file)
+        assert opts == jopts | {"--device", "--devices", "--trace"}, name
         dev = [a.default for a in sp._actions
                if "--device" in a.option_strings]
         assert dev == ["cuda"], name
         devs = [a.default for a in sp._actions
                 if "--devices" in a.option_strings]
         assert devs == [None], name
+        traces = [a.default for a in sp._actions
+                  if "--trace" in a.option_strings]
+        assert traces == [None], name
 
 
 def test_cli_stage_chain_on_cpu(tmp_path):
