@@ -6,7 +6,7 @@
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels of ``jtk_tpu_torch/csrc`` (one nvcc per source,
    started together), fails on a ptxas spill of K3 (its DP and walk), the
-   K1 family, counts or the MCMC chain, and prints the SASS row-loop
+   K1 family, counts, the MCMC chain or K2, and prints the SASS row-loop
    statistics of K3's warp-form DP, of its walk and of the MCMC chain's
    step loop (``tools/sass_loop_stats``), failing on a block-wide barrier
    in any of them;
@@ -18,7 +18,11 @@
    tuning's B 40 / W 128 and 256; counts, from float64 tables, also with
    reads that start 22 and 40 bases late; the MCMC chain at path (b)'s
    B 27 x 20 restarts / K 2 / V 8, at K 4 / V 12, at K 8 / V 40 and at a
-   1 Mb run's 414 chunks x 20 / K 2 / V 8) and then, in a last step, at
+   1 Mb run's 414 chunks x 20 / K 2 / V 8; K2, the modification table's
+   assembly, at a phase slice's B 192 / W 128 and at B 37 / W 256, every
+   live entry within 1e-3 nats of the plain assembly, widened only by the
+   plain version's own float64 error, the same -1e30 mask and the same
+   bits from two calls) and then, in a last step, at
    the band widths above 1024 that the pipeline can reach (K3 to 16 384,
    int32 cells above 8192; the K1 family, tables in both types, K1l and
    counts, to 8192, the scratch form above 4096), and times both with
@@ -113,7 +117,8 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM memory rate
 FP32_OPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 OUT_DIR = os.path.join(HERE, "chiprun_out", "chip_smoke")
 # libraries whose kernels must not spill (the script fails on a spill)
-NO_SPILL = ("edit_dp", "phmm_tables", "phmm_lk", "phmm_counts", "mcmc_chain")
+NO_SPILL = ("edit_dp", "phmm_tables", "phmm_lk", "phmm_counts", "mcmc_chain",
+            "modtable_assembly")
 LIBRARIES = NO_SPILL
 
 
@@ -1156,20 +1161,122 @@ def check_chain(rng, dev, sm_ghz):
     return row
 
 
+# K2's shapes (label, B, W, how late one read starts): a phase job's slice
+# (192 pairs of a ~2 kb pileup at W 128), and a smaller slice at W 256
+K2_SHAPES = (("phase_slice", 192, 128, 0), ("W256", 37, 256, 60))
+
+
+def _k2_args(prep, W, Tpad):
+    """K2's arguments (:func:`modtable.modification_table_from_tables`'s)
+    from a prepared batch, and the template codes it reads."""
+    from jtk_tpu_torch.ops import modtable as mt
+    from jtk_tpu_torch.ops import phmm_tables as pt
+    lk, f_tabs, fcum, rcs, b_tabs, bcum, offs = pt.tables_batch(prep, W)
+    trans_b, me_b = mt.strand_params(prep)
+    return (prep["qs"], offs, prep["q_lens"], prep["t_lens"], trans_b, me_b,
+            W, Tpad, lk, f_tabs, fcum, rcs, b_tabs, bcum), prep["r"]
+
+
+def k2_bound(args, tpl):
+    """K2's least time (ms): the five tables it reads (fM, fI, fD, bM, bD),
+    its small inputs and the template once, the (B, Tpad+1, 14) table
+    written once, over the memory rate (the ~150 float32 operations a cell
+    are a third of that time over the fp32 rate)."""
+    q, offs, ql, tl, trans, me, W, Tpad, lk, f_tabs, fcum, _rcs, b_tabs, \
+        bcum = args
+    B = q.shape[0]
+    cells = B * (q.shape[1] + 1) * W
+    moved = nbytes(*f_tabs, b_tabs[0], b_tabs[2], q, offs, ql, tl, trans, me,
+                   lk, fcum, bcum, tpl) + 4 * B * (Tpad + 1) * 14
+    return roofline(moved, 150.0 * cells)
+
+
+def check_modtable(rng, dev):
+    """K2 against the plain assembly at K2_SHAPES (one template a slice, a
+    pileup of 5 % error reads, both strands, at W 256 one read 60 bases
+    short): the same -1e30 mask, every live entry within 1e-3 nats (widened
+    only by the plain version's own float64 error), the same bits from two
+    calls; timed beside the plain version and the bound."""
+    import numpy as np
+    import torch
+
+    from jtk_tpu_torch.ops import modtable as mt
+    from jtk_tpu_torch.ops import phmm_tables as pt
+    from jtk_tpu_torch.ops.phmm import PHMMParams
+
+    params_f = PHMMParams.default(dev)
+    params_r = PHMMParams(params_f.trans * 0.98 + 0.0066,
+                          params_f.mat_emit, params_f.ins_emit)
+    res = []
+    for label, B, W, short in K2_SHAPES:
+        tpl, qs, offs, q_lens, W = _pileup_pairs(rng, B, 2000, 64, W,
+                                                 short=short)
+        Tpad = len(tpl)
+        prep = pt.prep_tables_inputs(qs, tpl, offs, q_lens, Tpad, params_f,
+                                     W, strands=rng.random(B) < 0.5,
+                                     params_rev=params_r, device=dev)
+        args, codes = _k2_args(prep, W, Tpad)
+        torch.cuda.synchronize()
+        _lk, got = mt.modification_table_from_tables(*args, codes)
+        _lk, again = mt.modification_table_from_tables(*args, codes)
+        plain_ms, (lk, want) = timed_once(
+            lambda: mt.modification_table_from_tables_plain(*args))
+        live = want > -1e29
+        diff = (got - want).abs()
+        err = float(diff[live].max())
+        # 1e-3 nats, widened only by the plain version's own float64 error
+        # (its column sums are differences of running sums: 4 * 2^-52 * S
+        # over an entry of linear value v, S the pair's total of the edit)
+        v = torch.exp((want - lk[:, None, None]).double()).where(live, 0.0)
+        tol = 1e-3 + 4 * 2.0 ** -52 * v.sum(1, keepdim=True) \
+            / v.clamp(min=1e-300)
+        if not (torch.equal(got > -1e29, live)
+                and not bool((live & (diff > tol)).any())
+                and torch.equal(got, again)):
+            raise AssertionError(f"K2 {label}: the table differs from the "
+                                 f"plain assembly (max {err:.3g} nats) or "
+                                 "from a second call")
+        ms = cuda_time(lambda: mt.modification_table_from_tables(
+            *args, codes), reps=5)
+        bound_ms, bound_by = k2_bound(args, codes)
+        Q = qs.shape[1]
+        log(f"K2 modtable_assembly {label} B={B} Q={Q} W={W} Tpad={Tpad}: "
+            f"max abs err {err:.3g} nats, kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.1f} ms, bound {bound_ms:.3f} ms ({bound_by})")
+        res.append(dict(label=label, B=B, Q=Q, W=W, Tpad=Tpad, err=err,
+                        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by))
+        del args, got, again, want, prep
+        torch.cuda.empty_cache()
+    r0 = res[0]
+    row = dict(name="modtable_assembly (K2)", route="cuda",
+               source="jtk_tpu_torch/csrc/modtable_assembly.cu",
+               replaces="jtk_tpu/ops/modtable.py:103 (jnp code that XLA "
+                        "fuses; no Pallas kernel)",
+               max_abs_err=max(r["err"] for r in res), ms=r0["ms"],
+               plain_ms=r0["plain_ms"], bound_ms=r0["bound_ms"],
+               bound_by=r0["bound_by"], library_ms=None,
+               shape={k: r0[k] for k in ("B", "Q", "W", "Tpad")})
+    for r in res[1:]:
+        row[f"at_{r['label']}"] = {k: r[k] for k in (
+            "B", "Q", "W", "Tpad", "ms", "plain_ms", "bound_ms")}
+    return row
+
+
 # ---------------------------------------------------------------------------
 # the slice: reads -> GFA
 # ---------------------------------------------------------------------------
 
 
 def launch_counters():
-    """The launch counters of the seven kernel wrappers (K3's DP and walk,
-    K1f, K1b, K1l, counts, the MCMC chain), in the order of the kernels
+    """The launch counters of the eight kernel wrappers (K3's DP and walk,
+    K1f, K1b, K1l, counts, the MCMC chain, K2), in the order of the kernels
     line."""
-    from jtk_tpu_torch.ops import (cluster, edit_dp, phmm_grad, phmm_lk,
-                                   phmm_tables)
+    from jtk_tpu_torch.ops import (cluster, edit_dp, modtable, phmm_grad,
+                                   phmm_lk, phmm_tables)
     return [edit_dp.LAUNCHES, edit_dp.TB_LAUNCHES, phmm_tables.FWD_LAUNCHES,
             phmm_tables.BWD_LAUNCHES, phmm_lk.LAUNCHES, phmm_grad.LAUNCHES,
-            cluster.CHAIN_LAUNCHES]
+            cluster.CHAIN_LAUNCHES, modtable.ASSEMBLY_LAUNCHES]
 
 
 def run_slice(rng, counters):
@@ -1253,10 +1360,18 @@ def run_slice(rng, counters):
     mark("evaluation")
     trace.disable()
     trace.write(os.path.join(OUT_DIR, "spans.tsv"))
-    for name, (calls, sec) in sorted(trace.snapshot()["spans"].items()):
+    snap = trace.snapshot()
+    for name, (calls, sec) in sorted(snap["spans"].items()):
         if name.startswith(("clustering.", "select_chunks.", "polish")):
             log(f"  span {name}: {calls} calls, {sec:.3f} s")
+    # every modtable slice of the path went through K2
+    k2 = {k: snap["counters"].get(k, 0) for k in
+          ("launches.modtable_assembly", "modtable.slices")}
+    log(f"  K2 launches {k2['launches.modtable_assembly']}, modtable slices "
+        f"{k2['modtable.slices']}")
     return dict(n_reads=len(reads), chunks=len(ds.selected_chunks),
+                k2_launches=k2["launches.modtable_assembly"],
+                modtable_slices=k2["modtable.slices"],
                 phased_chunks=len(aris),
                 mean_ari=float(np.mean(aris)) if aris else float("nan"),
                 contigs=len(m["contigs"]), total_len=int(m["total_len"]),
@@ -1675,10 +1790,11 @@ def _random_pairs(rng, B, Q, W):
 
 def _shape_call(kind, rng, dev, B, Q, W, *rest):
     """A call of kernel ``kind`` (a launch counter's name) at launch shape
-    (B, Q, W) (the tables' also with their type; the chain's is (B, S, K,
-    V, Rmax)) on synthetic pairs of that shape, and its bound (ms): the
-    inputs read and outputs written once over the memory rate, or the
-    operations of the rows these pairs need over the fp32 rate."""
+    (B, Q, W) (the tables' also with their type, K2's with Tpad; the
+    chain's is (B, S, K, V, Rmax)) on synthetic pairs of that shape, and its
+    bound (ms): the inputs read and outputs written once over the memory
+    rate, or the operations of the rows these pairs need over the fp32
+    rate."""
     import torch
 
     from jtk_tpu_torch.ops import edit_dp as k3
@@ -1691,6 +1807,15 @@ def _shape_call(kind, rng, dev, B, Q, W, *rest):
         return roofline(nbytes(*args) + out_bytes, ops)[0]
 
     params = PHMMParams.default(dev)
+    if kind == "modtable_assembly":
+        from jtk_tpu_torch.ops import modtable as mt
+        Tpad, = rest
+        qs, rs, offs, q_lens, t_lens = _random_pairs(rng, B, Q, W)
+        prep = pt.prep_tables_inputs(qs, rs, offs, q_lens, t_lens, params, W,
+                                     device=dev)
+        args, codes = _k2_args(prep, W, Tpad)
+        return (lambda: mt.modification_table_from_tables(*args, codes),
+                k2_bound(args, codes)[0])
     if kind == "mcmc_chain":
         from jtk_tpu_torch.ops import cluster as pcl
         S, K, V, Rmax = Q, W, *rest
@@ -2024,6 +2149,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows.append(check_chain(rng, dev, sm_ghz))
     torch.cuda.empty_cache()
+    rows.append(check_modtable(rng, dev))
+    torch.cuda.empty_cache()
     check_wide(rng, dev, rows)
     torch.cuda.empty_cache()
     log(f"kernel checks done at {time.time() - t_all:.1f} s")
@@ -2141,6 +2268,9 @@ def main() -> int:
     failures += [f"{r['name']} never launched on the slice" for r in rows
                  if r["launches_slice"] == 0
                  and r["name"] != "phmm_counts (lk gradient)"]
+    if res_a["k2_launches"] != res_a["modtable_slices"]:
+        failures.append(f"path (a): {res_a['k2_launches']} K2 launches for "
+                        f"{res_a['modtable_slices']} modtable slices")
     failures += spills
     failures += path_failures
     failures += truth_failures("path (a)", res_a, 2 * REGION_A / 3)

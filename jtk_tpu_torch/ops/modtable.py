@@ -2,11 +2,15 @@
 
 Counterpart of ``jtk_tpu/ops/modtable.py`` (see its docstring for the
 closed forms).  The banded forward/backward tables come from the K1
-kernels (:mod:`jtk_tpu_torch.ops.phmm_tables`); the closed-form assembly
-below is batched PyTorch over pairs with per-pair (strand-selected)
-parameters, and the band-to-column sums are scatter-free (row cumsum +
-boundary gather + a strided diagonal sum), so they are deterministic.
-The column sums run in float64 on the float32 tables: a column's sum is a
+kernels (:mod:`jtk_tpu_torch.ops.phmm_tables`); the closed-form assembly,
+with per-pair (strand-selected) parameters, is
+:func:`modification_table_from_tables`: on CUDA tensors the kernel of
+``csrc/modtable_assembly.cu`` (one thread a template column, its 16 column
+sums in float64 registers), on CPU tensors
+:func:`modification_table_from_tables_plain`, batched PyTorch whose
+band-to-column sums are scatter-free (row cumsum + boundary gather + a
+strided diagonal sum), so both are deterministic.  The column sums run in
+float64 on the float32 tables: in the plain version a column's sum is a
 difference of running row sums, and for an entry many nats below lk that
 difference cancels in float32 (``jtk_tpu``'s assembly, shared by its two
 engines, sums in float32 and misses the float64 oracle there by up to
@@ -35,6 +39,7 @@ import numpy as np
 import torch
 
 from .. import trace
+from .cuda_build import Launches, check, launch
 from .phmm import EPS, PHMMParams, _np
 from .phmm_tables import prep_tables_inputs, tables_batch
 
@@ -47,6 +52,7 @@ MAXB = 192           # pairs per fused slice at W <= 256
 POS_THR_DEV = 1e-5   # == ops.cluster.POS_THR (variant-support threshold)
 # engine calls by their number of slices (how many could use a device set)
 SLICE_CALLS: collections.Counter = collections.Counter()
+ASSEMBLY_LAUNCHES = Launches("modtable_assembly")
 trace.register(lambda: {f"modtable.calls_by_slices.{k}": v
                         for k, v in SLICE_CALLS.items()}, SLICE_CALLS.clear)
 
@@ -85,14 +91,60 @@ def _diag_sum(G):
 
 def modification_table_from_tables(q, offsets, q_len, t_len, trans, mat_emit,
                                    W: int, Tpad: int, lk, f_tabs, fcum, rcs,
-                                   b_tabs, bcum):
+                                   b_tabs, bcum, tpl):
     """The closed-form edit-table assembly for a batch of pairs from their
     banded forward/backward tables.
 
-    q (B, Q) codes; offsets (B, Q+1); q_len, t_len (B,); trans (B, 3, 3)
-    and mat_emit (B, 4, 4) per-pair parameters; tables (B, Q+1, W).
-    Returns (lk (B,), log-LK table (B, Tpad+1, NUM_EDIT)); invalid positions
-    hold -1e30."""
+    q (B, Q) codes; offsets (B, Q+1), non-decreasing in steps of 0 or 1;
+    q_len, t_len (B,); trans (B, 3, 3) and mat_emit (B, 4, 4) per-pair
+    parameters; tables (B, Q+1, W); rcs (B, Q+1, W) the band's template
+    codes; ``tpl`` (B, T) the template codes themselves (4 past t_len),
+    which the kernel reads by column in place of ``rcs``.  Returns (lk
+    (B,), log-LK table (B, Tpad+1, NUM_EDIT)); invalid positions hold
+    -1e30.  CPU tensors take the plain version, CUDA tensors the kernel."""
+    if q.device.type == "cpu":
+        return modification_table_from_tables_plain(
+            q, offsets, q_len, t_len, trans, mat_emit, W, Tpad, lk, f_tabs,
+            fcum, rcs, b_tabs, bcum)
+    return lk, _launch_assembly(q, offsets, q_len, t_len, trans, mat_emit,
+                                W, Tpad, lk, f_tabs, fcum, tpl, b_tabs, bcum)
+
+
+def _launch_assembly(q, offsets, q_len, t_len, trans, mat_emit, W: int,
+                     Tpad: int, lk, f_tabs, fcum, tpl, b_tabs, bcum):
+    """K2 on a slice: checks every argument, allocates the table and
+    launches once."""
+    B, Q = q.shape
+    fM, fI, fD = f_tabs
+    bM, _bI, bD = b_tabs
+    dev = q.device
+    f32, i32, i64 = torch.float32, torch.int32, torch.int64
+    for t, name, dt, shape in (
+            (q, "q", i32, (B, Q)), (offsets, "offsets", i64, (B, Q + 1)),
+            (q_len, "q_len", i64, (B,)), (t_len, "t_len", i64, (B,)),
+            (trans, "trans", f32, (B, 3, 3)),
+            (mat_emit, "mat_emit", f32, (B, 4, 4)), (lk, "lk", f32, (B,)),
+            (fM, "fM", f32, (B, Q + 1, W)), (fI, "fI", f32, (B, Q + 1, W)),
+            (fD, "fD", f32, (B, Q + 1, W)), (fcum, "fcum", f32, (B, Q + 1)),
+            (tpl, "tpl", i32, (B, tpl.shape[-1])),
+            (bM, "bM", f32, (B, Q + 1, W)), (bD, "bD", f32, (B, Q + 1, W)),
+            (bcum, "bcum", f32, (B, Q + 1))):
+        check(t, dt, shape, f"modtable_assembly {name}", device=dev)
+    out = torch.empty((B, Tpad + 1, NUM_EDIT), dtype=f32, device=dev)
+    if B == 0:
+        return out
+    launch("modtable_assembly", "modtable_assembly_launch", q, offsets,
+           q_len, t_len, trans, mat_emit, lk, fM, fI, fD, fcum, tpl, bM, bD,
+           bcum, out, B, Q, W, Tpad, tpl.shape[1])
+    ASSEMBLY_LAUNCHES.add((B, Q, W, Tpad))
+    return out
+
+
+def modification_table_from_tables_plain(q, offsets, q_len, t_len, trans,
+                                         mat_emit, W: int, Tpad: int, lk,
+                                         f_tabs, fcum, rcs, b_tabs, bcum):
+    """Plain PyTorch version of the K2 kernel (the oracle the card tests
+    hold it to)."""
     B, Q = q.shape
     dev = q.device
     fM, fI, fD = f_tabs
@@ -289,13 +341,20 @@ def _modtable_slice(qs, tpl, offs, q_lens, t_len, params, W: int, Tpad: int,
                                   device=device)
         lk, f_tabs, fcum, rcs, b_tabs, bcum, offs_t = tables_batch(prep, W)
     with trace.span("modtable.assembly", device=True):
-        sf = prep["strand"].to(torch.float32)[:, None, None]
-        trans_b = (1.0 - sf) * prep["trans"][:3, :3] \
-            + sf * prep["trans2"][:3, :3]
-        me_b = (1.0 - sf) * prep["me8"][:4, :4] + sf * prep["me28"][:4, :4]
+        trans_b, me_b = strand_params(prep)
         return modification_table_from_tables(
             prep["qs"], offs_t, prep["q_lens"], prep["t_lens"], trans_b,
-            me_b, W, Tpad, lk, f_tabs, fcum, rcs, b_tabs, bcum)
+            me_b, W, Tpad, lk, f_tabs, fcum, rcs, b_tabs, bcum, prep["r"])
+
+
+def strand_params(prep):
+    """Per-pair strand-selected (B, 3, 3) transitions and (B, 4, 4) match
+    emissions of a prepared batch."""
+    sf = prep["strand"].to(torch.float32)[:, None, None]
+    trans_b = (1.0 - sf) * prep["trans"][:3, :3] \
+        + sf * prep["trans2"][:3, :3]
+    me_b = (1.0 - sf) * prep["me8"][:4, :4] + sf * prep["me28"][:4, :4]
+    return trans_b, me_b
 
 
 def _slices(n: int, W: int):

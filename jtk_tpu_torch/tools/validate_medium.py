@@ -93,12 +93,13 @@ def record(L: int, cov: float, reads, wall: float, stage_s: dict,
 
 
 def launch_counters() -> list:
-    """The launch counters of the seven kernel wrappers: K3's DP and walk,
-    K1f, K1b, K1l, counts, the MCMC chain."""
-    from ..ops import cluster, edit_dp, phmm_grad, phmm_lk, phmm_tables
+    """The launch counters of the eight kernel wrappers: K3's DP and walk,
+    K1f, K1b, K1l, counts, the MCMC chain, K2."""
+    from ..ops import (cluster, edit_dp, modtable, phmm_grad, phmm_lk,
+                       phmm_tables)
     return [edit_dp.LAUNCHES, edit_dp.TB_LAUNCHES, phmm_tables.FWD_LAUNCHES,
             phmm_tables.BWD_LAUNCHES, phmm_lk.LAUNCHES, phmm_grad.LAUNCHES,
-            cluster.CHAIN_LAUNCHES]
+            cluster.CHAIN_LAUNCHES, modtable.ASSEMBLY_LAUNCHES]
 
 
 def card_line() -> str:

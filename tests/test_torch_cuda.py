@@ -726,3 +726,133 @@ def test_launch_on_a_second_card(monkeypatch):
     assert torch.cuda.current_device() == 0
     with pytest.raises(ValueError, match="one CUDA device"):
         cuda_build.launch("lib", "entry", y, torch.zeros(4, device="cuda:0"))
+
+
+# ---------------------------------------------------------------------------
+# K2: the modification table's assembly (csrc/modtable_assembly.cu)
+# ---------------------------------------------------------------------------
+
+
+def _k2_both(args, tpl):
+    """(kernel table, plain table) of one slice's assembly arguments."""
+    from jtk_tpu_torch.ops import modtable as pmod
+    n0 = pmod.ASSEMBLY_LAUNCHES.count
+    lk, got = pmod.modification_table_from_tables(*args, tpl)
+    assert pmod.ASSEMBLY_LAUNCHES.count == n0 + 1 and lk is args[8]
+    _lk, want = pmod.modification_table_from_tables_plain(*args)
+    return got, want
+
+
+@pytest.mark.parametrize("W,B,per_pair,T", [
+    (128, 1, True, 600), (128, 37, False, 600), (128, 192, True, 2200),
+    (256, 1, False, 900), (256, 37, True, 900), (256, 192, True, 2200),
+    (1024, 4, True, 2400), (8320, 2, True, 9000)],
+    ids=["W128-B1", "W128-B37-one-template", "W128-B192",
+         "W256-B1-one-template", "W256-B37", "W256-B192", "W1024-B4",
+         "W8320-B2"])
+def test_modtable_assembly_kernel_matches_plain(W, B, per_pair, T):
+    """K2 against the plain assembly: the same live entries (the -1e30
+    mask), and every live entry within 1e-3 nats, widened only by the
+    plain version's own float64 error bound (``plain_error_bound``: its
+    column sums are differences of running sums; at a read whose lk is
+    floored they miss K2's by up to ~2e-3 nats, and K2 meets the column
+    walk's exact sums there, next test).  Reads of both strands, some
+    ending early or starting late; one template or per-pair templates of
+    different lengths."""
+    require_cuda()
+    from k2_model import k2_case, plain_error_bound
+    args, tpl, _Tpad = k2_case(40 + W + B, B, W, per_pair=per_pair, T=T,
+                               device="cuda")
+    got, want = _k2_both(args, tpl)
+    live = want > -1e29
+    assert torch.equal(got > -1e29, live)
+    assert torch.equal(got[~live], want[~live])
+    off = (got - want).abs() > plain_error_bound(want, args[8])
+    assert not bool((off & live).any())
+
+
+@pytest.mark.parametrize("W,B,T", [(128, 192, 2200), (256, 37, 900)],
+                         ids=["W128-B192", "W256-B37"])
+def test_modtable_assembly_kernel_matches_its_column_walk(W, B, T):
+    """K2 against tests/k2_model.py, its recurrence in plain PyTorch with
+    the same float32 terms and float64 column sums in row order (held to
+    the plain assembly on the CPU): every live entry within 1e-3 nats."""
+    require_cuda()
+    from k2_model import k2_case, k2_model
+    args, tpl, _Tpad = k2_case(50 + W + B, B, W, T=T, device="cuda")
+    got, _want = _k2_both(args, tpl)
+    walk = k2_model(*args[:11], tpl, *args[12:])
+    live = walk > -1e29
+    assert torch.equal(got > -1e29, live)
+    assert float((got - walk).abs()[live].max()) < 1e-3
+
+
+def test_modtable_assembly_kernel_repeats_and_is_batch_free():
+    """Two launches give the same bits, and each pair's table inside a
+    slice of 192 is the one it gets alone."""
+    require_cuda()
+    from jtk_tpu_torch.ops import modtable as pmod
+    from k2_model import k2_case
+    args, tpl, _Tpad = k2_case(77, 192, 128, T=2200, device="cuda")
+    _lk, a = pmod.modification_table_from_tables(*args, tpl)
+    _lk, b = pmod.modification_table_from_tables(*args, tpl)
+    assert torch.equal(a, b)
+
+    def pair(x, i):
+        if isinstance(x, tuple):
+            return tuple(pair(y, i) for y in x)
+        if isinstance(x, torch.Tensor):
+            return x[i:i + 1].contiguous()
+        return x
+
+    for i in (0, 1, 2, 95, 191):
+        _lk, one = pmod.modification_table_from_tables(
+            *(pair(x, i) for x in args), pair(tpl, i))
+        assert torch.equal(one[0], a[i])
+
+
+def test_modtable_assembly_deep_entries_meet_the_float64_oracle():
+    """K2's copy 2-3 and del 2-3 entries many nats below lk (where float32
+    column sums cancel) against an unbanded float64 forward on the edited
+    template: 50 reads of 8 % error, a 150-base template, W 128."""
+    require_cuda()
+    import oracle64
+    import test_torch_parallel as tp
+    from jtk_tpu_torch.ops import modtable as pmod
+    from jtk_tpu_torch.ops import phmm as pphmm
+    from torch_util import DEEP_COLS, oracle_misses
+    template, qs, offs, q_lens, W = tp._modtable_inputs(seed=8)[:5]
+    L = len(template)
+    tpl = np.asarray(template, np.int8)
+    n0 = pmod.ASSEMBLY_LAUNCHES.count
+    lk, tab = pmod.modification_table_pileup_pallas(
+        qs, tpl, offs, q_lens, np.int32(L), pphmm.PHMMParams.default("cuda"),
+        W, L)
+    assert pmod.ASSEMBLY_LAUNCHES.count > n0
+    deep = np.isin(np.arange(pmod.NUM_EDIT), DEEP_COLS)[None, None, :]
+    gain = tab - lk[:, None, None]
+    live = (tab > -1e29) & deep
+    rng = np.random.default_rng(0)
+    far = np.argwhere(live & (gain < -12.0))
+    near = np.argwhere(live & (gain > -3.0))
+    pick = np.concatenate([far[rng.choice(len(far), 12, replace=False)],
+                           near[rng.choice(len(near), 3, replace=False)]])
+    assert oracle_misses(qs, q_lens, tpl, tab, pick, oracle=oracle64) == []
+
+
+def test_modtable_assembly_wrapper_raises_on_bad_input():
+    require_cuda()
+    from jtk_tpu_torch.ops import modtable as pmod
+    from k2_model import k2_case
+    args, tpl, _Tpad = k2_case(9, 4, 128, T=300, device="cuda")
+    bad = list(args)
+    bad[1] = args[1].to(torch.int32)                       # offsets' dtype
+    with pytest.raises(ValueError, match="offsets"):
+        pmod.modification_table_from_tables(*bad, tpl)
+    fM, fI, fD = args[9]
+    bad = list(args)
+    bad[9] = (fM[..., :-1].contiguous(), fI, fD)           # a table's shape
+    with pytest.raises(ValueError, match="fM"):
+        pmod.modification_table_from_tables(*bad, tpl)
+    with pytest.raises(ValueError, match="tpl"):           # its device
+        pmod.modification_table_from_tables(*args, tpl.cpu())

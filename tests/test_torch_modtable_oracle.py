@@ -50,3 +50,25 @@ def test_multi_base_entries_meet_the_float64_oracle():
     controls = agree[rng.choice(len(agree), CONTROLS, replace=False)]
     assert oracle_misses(qs, q_lens, tpl, tab, np.concatenate(
         [pick, controls])) == []
+
+
+def test_jax_free_oracle_matches_the_oracle():
+    """tests/oracle64.py (the card tests' oracle) against
+    ``jtk_tpu.ops.oracle`` on edited templates of noisy reads."""
+    import oracle64
+    from jtk_tpu.ops import oracle
+    from jtk_tpu_torch.io import sim
+    hmm = HMMParam()
+    par = {k: getattr(hmm, k) for k in
+           ("mat_mat", "mat_ins", "mat_del", "ins_mat", "ins_ins", "ins_del",
+            "del_mat", "del_ins", "del_del", "mat_emit", "ins_emit")}
+    rng = np.random.default_rng(3)
+    for n, (op, base) in enumerate([("S", 2), ("I", 1), ("D", 3), ("C", 2),
+                                    ("C", 3)]):
+        t = sim.random_genome(rng, 40 + 7 * n)
+        q = sim.noisy_read(rng, t, 0.08)
+        pos = int(rng.integers(3, len(t) - 6))
+        e = oracle64.apply_edit(t, op, pos, base)
+        np.testing.assert_array_equal(e, oracle.apply_edit(t, op, pos, base))
+        assert abs(oracle64.phmm_forward(q, e, par)
+                   - oracle.phmm_forward(q, e, par)) < 1e-9

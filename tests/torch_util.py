@@ -33,14 +33,19 @@ COPY1, DEL1 = 8, 11
 DEEP_COLS = (COPY1 + 1, COPY1 + 2, DEL1 + 1, DEL1 + 2)
 
 
-def oracle_misses(qs, q_lens, template, tab, entries):
+def oracle_misses(qs, q_lens, template, tab, entries, oracle=None):
     """Entries (read, pos, col) of a copy or deletion column whose value in
     ``tab`` misses the float64 oracle: a deletion by more than 3e-2 nats;
     a copy of 2-3 bases above oracle + 3e-2 or more than 0.6 below it (the
     closed form drops the insertion states between the copied columns,
-    tests/test_modtable.py)."""
-    from jtk_tpu.datamodel import HMMParam
-    from jtk_tpu.ops import oracle
+    tests/test_modtable.py).  The oracle is ``jtk_tpu.ops.oracle``, or
+    ``oracle`` (a module with its ``phmm_forward`` and ``apply_edit``, such
+    as tests/oracle64.py) with the port's default HMM."""
+    if oracle is None:
+        from jtk_tpu.datamodel import HMMParam
+        from jtk_tpu.ops import oracle
+    else:
+        from jtk_tpu_torch.datamodel import HMMParam
     hmm = HMMParam()      # the default HMM, as the oracle takes it
     par = {k: getattr(hmm, k) for k in
            ("mat_mat", "mat_ins", "mat_del", "ins_mat", "ins_ins", "ins_del",
