@@ -347,7 +347,7 @@ def extend_candidates(cands: list[Candidate], read_codes: list[np.ndarray],
     import torch
 
     from ..ops.edit_dp import extend_hostwin_packed, to_host
-    from ..parallel import gather, on_entry, replicate, shard_bounds
+    from ..parallel import MERGE, gather, on_entry, replicate, shard_bounds
     from ..runtime import devices
     logging.getLogger(__name__).info("extend: %d candidates", len(cands))
     devs = devices()
@@ -417,13 +417,15 @@ def extend_candidates(cands: list[Candidate], read_codes: list[np.ndarray],
             for i, (a, b) in enumerate(shard_bounds(B, len(devs))):
                 if a == b:
                     continue
-                with on_entry(i):
+                with on_entry(i, devs[i]):
                     parts.append(extend_hostwin_packed(
                         dev_blob[i], dev_lens[i], cc[a:b], rows[a:b],
                         ws_a[a:b], a_a[a:b], t_lens[a:b], W, Qpad, Tpad,
                         margin, device=devs[i]))
-            meta, ops_packed, delpack = to_host(
-                *(gather([p[n] for p in parts], devs[0]) for n in range(3)))
+            with trace.span(MERGE):
+                meta, ops_packed, delpack = to_host(*(
+                    gather([p[n] for p in parts], devs[0])
+                    for n in range(3)))
         with trace.span("mapper.decode"):
             q_lens = [len(chunk_seqs[c.chunk_id]) for c in grp]
             decoded = decode_indexed(meta, ops_packed, delpack, q_lens)

@@ -51,7 +51,8 @@ class Launches:
     of launches, ``shapes`` counts them by launch shape and ``entries`` by
     the entry of the device set (:data:`ENTRY`) they ran for.  It counts
     whether tracing is on or off; :func:`trace.snapshot` lists ``count``
-    as ``launches.<name>``."""
+    as ``launches.<name>``.  While tracing is on each launch also counts
+    in ``parallel.launches.<entry>``, summed over every kernel."""
 
     def __init__(self, name: str):
         self.name = name
@@ -62,9 +63,12 @@ class Launches:
                        self.reset)
 
     def add(self, shape: tuple) -> None:
+        entry = ENTRY.get()
         self.count += 1
         self.shapes[shape] += 1
-        self.entries[ENTRY.get()] += 1
+        self.entries[entry] += 1
+        if trace.active():
+            trace.count(f"parallel.launches.{entry}")
 
     def reset(self) -> None:
         self.count = 0

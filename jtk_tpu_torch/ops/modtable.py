@@ -26,7 +26,8 @@ The two engines run their pair slices (:func:`_slices`) over the device set
 (:func:`jtk_tpu_torch.runtime.devices`): slice i on entry i mod n, each
 whole, so every launch has the shape it has on one device, and the
 per-slice results are merged on the primary in slice order, as one device
-merges them.  (``jtk_tpu`` splits the rows inside a slice instead; in the
+merges them (``parallel.merge``, nested in the spans that held the merges
+before it).  (``jtk_tpu`` splits the rows inside a slice instead; in the
 port that would change the launches' batch sizes with the device count.)
 """
 
@@ -404,7 +405,7 @@ def modification_table_pileup_pallas(qs, tpl, offs, q_lens, t_len, params,
     are summed per segment on the device instead and the second result is
     the dense totals (numpy), a :class:`SparseGains` (``sparse_k``), or —
     with ``finish=False`` — the tensor of totals on the primary."""
-    from ..parallel import on_entry
+    from ..parallel import MERGE, count_merge, on_entry
     # the band is rounded up to a multiple of 128, as in the production
     # engine of the JAX package (the extra lanes only add paths)
     W = ((int(W) + 127) // 128) * 128
@@ -419,7 +420,7 @@ def modification_table_pileup_pallas(qs, tpl, offs, q_lens, t_len, params,
     primary, parts = _device_slices(qs.shape[0], W)
     for entry, dev, sl in parts:
         tpl_s, tl_s, st_s = _slice_inputs(tpl, t_len, strands, sl)
-        with on_entry(entry):
+        with on_entry(entry, dev):
             lk, tab = _modtable_slice(qs[sl], tpl_s, offs[sl], q_lens[sl],
                                       tl_s, params, W, Tpad, st_s,
                                       params_rev, device=dev)
@@ -428,13 +429,21 @@ def modification_table_pileup_pallas(qs, tpl, offs, q_lens, t_len, params,
                 with trace.span("modtable.assembly", device=True):
                     seg = torch.as_tensor(np.asarray(seg_ids)[sl],
                                           dtype=torch.int64, device=dev)
-                    tot = _gain_segments(lk, tab, seg, n_seg).to(primary)
-                    totals = tot if totals is None else totals + tot
+                    tot = _gain_segments(lk, tab, seg, n_seg)
+                    with trace.span(MERGE):
+                        count_merge(entry, tot)
+                        tot = tot.to(primary)
+                        totals = tot if totals is None else totals + tot
             else:
                 tabs.append(tab)
-    lk_all = torch.cat([lk.to(primary) for lk in lks]).cpu().numpy() \
-        if lks else np.zeros(0, np.float32)
-    tabs = [tab.cpu().numpy() for tab in tabs]
+    with trace.span(MERGE):
+        for (entry, _dev, _sl), lk in zip(parts, lks):
+            count_merge(entry, lk)
+        for (entry, _dev, _sl), tab in zip(parts, tabs):
+            count_merge(entry, tab)
+        lk_all = torch.cat([lk.to(primary) for lk in lks]).cpu().numpy() \
+            if lks else np.zeros(0, np.float32)
+        tabs = [tab.cpu().numpy() for tab in tabs]
     if reduce:
         if not finish:
             return lk_all, totals
@@ -555,7 +564,7 @@ def modtable_pileup_stats_pallas(qs, tpl, offs, q_lens, t_len, params,
 
     Returns (lks (B,), stats (n_seg, Tpad+1, NUM_EDIT, 6) float64,
     gather(flat_cols) -> (raw (B, U), comp (B, U)))."""
-    from ..parallel import on_entry
+    from ..parallel import MERGE, count_merge, on_entry
     W = ((int(W) + 127) // 128) * 128
     tpl = np.asarray(tpl)
     tpl = tpl[:Tpad] if tpl.ndim == 1 else tpl[:, :Tpad]
@@ -570,7 +579,7 @@ def modtable_pileup_stats_pallas(qs, tpl, offs, q_lens, t_len, params,
     primary, parts = _device_slices(qs.shape[0], W)
     for entry, dev, sl in parts:
         tpl_s, tl_s, st_s = _slice_inputs(tpl, t_len, strands, sl)
-        with on_entry(entry):
+        with on_entry(entry, dev):
             lk, tab = _modtable_slice(qs[sl], tpl_s, offs[sl], q_lens[sl],
                                       tl_s, params, W, Tpad, st_s,
                                       params_rev, device=dev)
@@ -590,7 +599,9 @@ def modtable_pileup_stats_pallas(qs, tpl, offs, q_lens, t_len, params,
         kept.append((entry, tab, lk, seg, exp_dev[entry]))
     # the slices' stats summed in float64 in slice order, as one device
     # sums them
-    with trace.span("modtable.assembly", device=True):
+    with trace.span("modtable.assembly", device=True), trace.span(MERGE):
+        for (entry, _tab, lk, _seg, _exp), st in zip(kept, sts):
+            count_merge(entry, st, lk)
         stats = None
         for st in sts:
             st = st.cpu().numpy().astype(np.float64)
@@ -603,12 +614,15 @@ def modtable_pileup_stats_pallas(qs, tpl, offs, q_lens, t_len, params,
         cols = np.asarray(flat_cols, np.int64)
         raws, comps = [], []
         for entry, tab, lk, seg, exp in kept:
-            with on_entry(entry):
+            with on_entry(entry, tab.device):
                 c = torch.as_tensor(cols, device=tab.device)
                 prof, comp = _compressed_prof(tab, lk, seg, exp)
                 raws.append(prof.reshape(prof.shape[0], -1)[:, c])
                 comps.append(comp.reshape(comp.shape[0], -1)[:, c])
-        return (np.concatenate([r.cpu().numpy() for r in raws]),
-                np.concatenate([c.cpu().numpy() for c in comps]))
+        with trace.span(MERGE):
+            for (entry, *_k), r, c in zip(kept, raws, comps):
+                count_merge(entry, r, c)
+            return (np.concatenate([r.cpu().numpy() for r in raws]),
+                    np.concatenate([c.cpu().numpy() for c in comps]))
 
     return lks, stats, gather

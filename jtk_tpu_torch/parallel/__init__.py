@@ -13,6 +13,14 @@ sharded path gives the same bits at any device count.  Each shard's work
 is queued before any result is read back (no host sync inside a shard
 loop), so the cards of a set overlap.
 
+While tracing (:mod:`jtk_tpu_torch.trace`), the span ``parallel.merge``
+holds the host time of bringing shard results to the primary or to the
+host (:func:`gather`, the k-mer histogram's sum, the modtable engines'
+and the mapper's merges), and the counter ``parallel.merge_bytes`` the
+bytes those merges take from shards of entries other than the primary
+(:func:`count_merge`: by entry, so entries that share a device count as
+entries on devices of their own).
+
 * the log-domain parameterisation (``params_to_theta`` /
   ``theta_to_params``);
 * the train step (``make_train_step`` / ``make_train_steps``): reads
@@ -38,6 +46,7 @@ import contextlib
 import numpy as np
 import torch
 
+from .. import trace
 from ..ops import cuda_build
 from ..ops.phmm import PHMMParams
 from ..ops.phmm_grad import PairBatch, pair_counts, pair_lk, param_grads
@@ -45,6 +54,7 @@ from ..ops.phmm_lk import lk_inputs, phmm_lk, tables8
 from ..runtime import resolve_set
 
 KEYS = ("trans", "mat_emit", "ins_emit")
+MERGE = "parallel.merge"
 
 
 def shard_bounds(n: int, k: int) -> list[tuple[int, int]]:
@@ -61,14 +71,27 @@ def shard_bounds(n: int, k: int) -> list[tuple[int, int]]:
 
 
 @contextlib.contextmanager
-def on_entry(i: int):
-    """Count the enclosed launches for entry ``i`` of the device set
-    (:class:`~..ops.cuda_build.Launches`' ``entries``)."""
+def on_entry(i: int, device):
+    """The enclosed work is entry ``i``'s shard, on ``device``: its
+    launches count for entry ``i`` (:class:`~..ops.cuda_build.Launches`'
+    ``entries``), and a device span inside it waits for that device alone
+    (:data:`trace.SHARD`)."""
     token = cuda_build.ENTRY.set(i)
+    shard = trace.SHARD.set(device)
     try:
         yield
     finally:
+        trace.SHARD.reset(shard)
         cuda_build.ENTRY.reset(token)
+
+
+def count_merge(entry: int, *tensors) -> None:
+    """Add the bytes of ``tensors``, results of entry ``entry``'s shard,
+    to ``parallel.merge_bytes`` where the entry is not the primary, and 0
+    where it is (while tracing)."""
+    if trace.active():
+        trace.count("parallel.merge_bytes", entry and sum(
+            t.numel() * t.element_size() for t in tensors))
 
 
 def _tensor(x) -> torch.Tensor:
@@ -105,9 +128,13 @@ def replicate(devs, *tensors):
 
 
 def gather(shards, dev) -> torch.Tensor:
-    """The shards concatenated in order on ``dev`` (the all-gather)."""
-    shards = [s.to(dev) for s in shards]
-    return shards[0] if len(shards) == 1 else torch.cat(shards)
+    """The shards (shard i entry i's) concatenated in order on ``dev``
+    (the all-gather)."""
+    with trace.span(MERGE):
+        for i, s in enumerate(shards):
+            count_merge(i, s)
+        shards = [s.to(dev) for s in shards]
+        return shards[0] if len(shards) == 1 else torch.cat(shards)
 
 
 def shard_batch(batch: PairBatch, devices=None) -> list[PairBatch]:
@@ -150,7 +177,7 @@ def _per_shard(fn, tables, shards):
     copied to the shard's device."""
     out = []
     for i, b in enumerate(shards):
-        with on_entry(i):
+        with on_entry(i, b.device):
             out.append(fn(PHMMParams(*(t.to(b.device) for t in tables)), b))
     return out
 
@@ -248,7 +275,7 @@ def make_sharded_pileup_lk(W: int, devices=None):
                 zip(shard_bounds(len(qs), len(devs)), devs)):
             if a == b:
                 continue
-            with on_entry(i):
+            with on_entry(i, dev):
                 args = lk_inputs(qs[a:b], template, offsets[a:b],
                                  q_lens[a:b], t_len, W, device=dev)
                 outs.append(phmm_lk(*args, *tables8(PHMMParams.default(dev),
@@ -274,16 +301,20 @@ def make_sharded_kmer_hist(n_bins: int, devices=None):
         shards, = shard_leading(devs, kmers)
         hist = None
         for i, s in enumerate(shards):
-            with on_entry(i):
+            with on_entry(i, s.device):
                 h = torch.bincount(s.to(torch.int64) % n_bins,
-                                   minlength=n_bins).to(devs[0])
-            hist = h if hist is None else hist + h
+                                   minlength=n_bins)
+            with trace.span(MERGE):
+                count_merge(i, h)
+                h = h.to(devs[0])
+                hist = h if hist is None else hist + h
         return hist
 
     return fn
 
 
-__all__ = ["KEYS", "shard_bounds", "shard_leading", "replicate", "gather",
-           "shard_batch", "on_entry", "params_to_theta", "theta_to_params",
-           "make_train_step", "make_train_steps", "make_sharded_pileup_lk",
+__all__ = ["KEYS", "MERGE", "shard_bounds", "shard_leading", "replicate",
+           "gather", "shard_batch", "on_entry", "count_merge",
+           "params_to_theta", "theta_to_params", "make_train_step",
+           "make_train_steps", "make_sharded_pileup_lk",
            "make_sharded_kmer_hist"]

@@ -149,6 +149,9 @@ def run(L: int, cov: float, work_dir: str | None = None,
                     else torch.cuda.current_device()
                     for d in devs if d.type == "cuda"})
     for i in cards:
+        # the card's allocator exists once the card is first used: an
+        # explicit set (cuda:0,cuda:1,...) has not touched any card here
+        torch.empty(0, device=f"cuda:{i}")
         torch.cuda.reset_peak_memory_stats(i)
     counters = launch_counters()
     for c in counters:

@@ -23,12 +23,15 @@ range is an op-scope ``RecordFunction``: a ``record_function`` range
 also leaves an annotation on the device's timeline, which a reader of
 the device's busy time would have to know by name to tell from work.  A
 span inside a span of the same name counts once.  A span made with
-``device=True`` ends in a synchronize of every CUDA device of
-:func:`jtk_tpu_torch.runtime.devices`, so that it holds the device work
-it started; host spans do not synchronize, so a traced run keeps what
-overlap of host and device it can.  :func:`count` adds to a named
-counter, and only while tracing is on, so that a unit counter covers
-exactly the work its spans cover.
+``device=True`` ends in a synchronize, so that it holds the device work
+it started: inside a shard's work (:func:`jtk_tpu_torch.parallel.on_entry`,
+which sets :data:`SHARD`) of that shard's device alone, elsewhere of every
+CUDA device of :func:`jtk_tpu_torch.runtime.devices`; so the shards of a
+device set still overlap while traced.  Host spans do not synchronize,
+so a traced run keeps what overlap of host and device it can.
+:func:`count` adds to a named counter, and only while tracing is on, so
+that a unit counter covers exactly the work its spans cover (the launches
+by entry, ``parallel.launches.<i>``, too).
 
 The kernel wrappers' launch counters (``ops.cuda_build.Launches``) and
 the modification table's ``SLICE_CALLS`` count always, on or off; they
@@ -42,6 +45,7 @@ Names are dotted, ``<layer>.<part>``; README.md lists every span.
 from __future__ import annotations
 
 import collections
+import contextvars
 import functools
 import time
 
@@ -60,6 +64,9 @@ _COUNTS: collections.Counter = collections.Counter()
 _DEPTH: collections.Counter = collections.Counter()
 # (read() -> {counter: value}, clear()) of the always-on counters
 _SOURCES: list = []
+# the device of the shard whose work is running (set by
+# ``parallel.on_entry``); None outside any shard's work
+SHARD: contextvars.ContextVar = contextvars.ContextVar("shard", default=None)
 
 
 def active() -> bool:
@@ -78,10 +85,13 @@ def disable() -> None:
 
 
 def _sync() -> None:
+    """Synchronize the running shard's device, or outside a shard every
+    device of the set."""
     if not torch.cuda.is_available():
         return
     from .runtime import devices
-    for d in devices():
+    shard = SHARD.get()
+    for d in devices() if shard is None else [torch.device(shard)]:
         if d.type == "cuda":
             torch.cuda.synchronize(d)
 
