@@ -559,11 +559,12 @@ def modtable_pileup_stats_pallas(qs, tpl, offs, q_lens, t_len, params,
                                  seg_ids, n_seg: int, exp_mat):
     """Variant-stats flavour of :func:`modification_table_pileup_pallas`:
     per slice, the modification tables are reduced on the device to
-    per-template variant statistics; the per-pair tables stay on their
-    slice's device so candidate columns can be gathered afterwards.
+    per-template variant statistics, and the slices' statistics are summed
+    in float64 on the primary; the per-pair tables stay on their slice's
+    device so candidate columns can be gathered afterwards.
 
-    Returns (lks (B,), stats (n_seg, Tpad+1, NUM_EDIT, 6) float64,
-    gather(flat_cols) -> (raw (B, U), comp (B, U)))."""
+    Returns (lks (B,), stats (n_seg, Tpad+1, NUM_EDIT, 6) float64 on the
+    primary, gather(flat_cols) -> (raw (B, U), comp (B, U)))."""
     from ..parallel import MERGE, count_merge, on_entry
     W = ((int(W) + 127) // 128) * 128
     tpl = np.asarray(tpl)
@@ -597,15 +598,16 @@ def modtable_pileup_stats_pallas(qs, tpl, offs, q_lens, t_len, params,
                     _stats_planes(tab, lk, seg, exp_dev[entry], fwd), seg,
                     n_seg))
         kept.append((entry, tab, lk, seg, exp_dev[entry]))
-    # the slices' stats summed in float64 in slice order, as one device
-    # sums them
+    # the slices' stats summed in float64 on the primary in slice order,
+    # as one device sums them; each slice's block is freed once added
     with trace.span("modtable.assembly", device=True), trace.span(MERGE):
         for (entry, _tab, lk, _seg, _exp), st in zip(kept, sts):
             count_merge(entry, st, lk)
         stats = None
-        for st in sts:
-            st = st.cpu().numpy().astype(np.float64)
-            stats = st if stats is None else stats + st
+        for i, st in enumerate(sts):
+            sts[i] = None
+            st = st.to(primary).to(torch.float64)
+            stats = st if stats is None else stats.add_(st)
         lks = torch.cat([k[2].to(primary) for k in kept]).cpu().numpy()
     logger.info("modtable stats: %d pairs, %d slices, W=%d", qs.shape[0],
                 len(kept), W)

@@ -570,8 +570,13 @@ def _variant_features_device(per_chunk, params_f, params_r, band, Tpad,
             qs, tpl_mat, offs, qlb, tlb, params_f, Wb, Tpad,
             pair_strand[bidx], params_r, seg_ids[bidx],
             len(order), exp_mats)
-        stats = st if stats is None else stats + st
+        stats = st if stats is None else stats.add_(st)
         bucket_gathers.append((bidx, g))
+    # the buckets' stats summed on the primary, then one copy to the host
+    with trace.span("clustering.features.stats_copy", device=True):
+        trace.count("modtable.stats_host_bytes",
+                    stats.numel() * stats.element_size())
+        stats = stats.cpu().numpy()
 
     def gather(cols):
         raw = np.zeros((Bp, len(cols)), np.float32)

@@ -306,7 +306,7 @@ def _modtables(n_dev, dev="cpu"):
     return dict(lk=lk, tab=tab, lk2=lk2, tot=tot, lk3=lk3,
                 tot_dev=tot_dev.cpu(),
                 sparse=[sparse.vals, sparse.idx, sparse.ev, sparse.counts],
-                lks=lks, stats=stats, raw=raw, comp=comp)
+                lks=lks, stats=stats.cpu(), raw=raw, comp=comp)
 
 
 @functools.lru_cache(maxsize=None)
@@ -314,17 +314,40 @@ def _modtables_one():
     return _modtables(1)
 
 
+def _record_stats_blocks(monkeypatch):
+    """The variant-stats engine's float32 block of each slice (its six
+    planes' segment sums), as numpy, in the order the slices ran."""
+    blocks = []
+    orig = pmod._segsum_matmul
+
+    def recorded(x, seg, n_rows):
+        out = orig(x, seg, n_rows)
+        if out.shape[-1] == 6:
+            blocks.append(out.cpu().numpy().copy())
+        return out
+    monkeypatch.setattr(pmod, "_segsum_matmul", recorded)
+    return blocks
+
+
 @pytest.mark.parametrize("n_dev", SHARDS)
 def test_modtable_engines_bit_identical(n_dev, monkeypatch):
     """50 pairs in slices of 16 (MAXB cut to the slice floor): four
-    slices, so three entries take one slice each and one takes two."""
+    slices, so three entries take one slice each and one takes two.  The
+    variant stats are the slices' float32 blocks summed in float64 in
+    slice order on the primary, bit for bit as numpy sums them."""
     monkeypatch.setattr(pmod, "MAXB", 16)
     want = _modtables_one()
+    blocks = _record_stats_blocks(monkeypatch)
     before = dict(pmod.SLICE_CALLS)
     got = _modtables(n_dev)
     assert pmod.SLICE_CALLS[4] - before.get(4, 0) == 5
     _equal(got, want)
     assert want["tab"].shape == (50, 151, pmod.NUM_EDIT)
+    assert len(blocks) == 4
+    host = functools.reduce(np.add, (b.astype(np.float64) for b in blocks))
+    assert got["stats"].dtype == torch.float64
+    assert np.array_equal(got["stats"].numpy().view(np.int64),
+                          host.view(np.int64))
 
 
 def _extend_inputs(seed=11):

@@ -59,8 +59,8 @@ def _engines(n_dev):
             qs, template, offs, q_lens, np.int32(L), pf, W, L, strands, pr,
             seg, 3, exp_mat)
         raw, comp = gather(np.array([0, 5, 77, 14 * 40 + 3], np.int64))
-    return dict(lk=lk, tab=tab, lk2=lk2, tot=tot, lks=lks, stats=stats,
-                raw=raw, comp=comp)
+    return dict(lk=lk, tab=tab, lk2=lk2, tot=tot, lks=lks,
+                stats=stats.numpy(), raw=raw, comp=comp)
 
 
 def _launch_standing_in_for_k2(orig):

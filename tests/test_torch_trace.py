@@ -33,6 +33,7 @@ READERS = {
     "mapper.extend_host_ms_per_read": "encode",
     "mapper.k3_ms_per_read": "encode",
     "encode.nodes_ms_per_read": "encode",
+    "modtable.stats_host_mb_per_chunk": "phase",
 }
 SELECTION = {0, 1, 2}
 CHILDREN = {
@@ -40,6 +41,7 @@ CHILDREN = {
                "modtable.assembly"),
     "clustering.features": ("clustering.features.prep",
                             "clustering.features.candidates",
+                            "clustering.features.stats_copy",
                             "clustering.features.gather",
                             "clustering.features.pick", "modtable.k1",
                             "modtable.assembly"),
@@ -255,9 +257,10 @@ def load_reader(name):
 
 @pytest.mark.parametrize("name", sorted(READERS))
 def test_a_reader_reads_the_programs_spans(runs, name, monkeypatch):
-    """Each reader of the program's spans gives a positive number from a
-    registry that a tiny traced call filled, and None from an empty
-    one; it declares no spans or launches of the benchmark's own."""
+    """Each reader of the program's spans and counters gives a positive
+    number from a registry that a tiny traced call filled, and None from
+    an empty one; it declares no spans or launches of the benchmark's
+    own."""
     reader = load_reader(name)
     assert not hasattr(reader, "SPANS") and not hasattr(reader, "LAUNCHES")
     trace.reset()
