@@ -1629,10 +1629,9 @@ def multidevice_phase(rng, n=4, dev="cuda"):
         return [theta[k] for k in par.KEYS] + [losses]
 
     def modtable():
-        return list(mt.modification_table_pileup_pallas(
+        return list(mt.modtable_pileup_gains(
             mqs, mtpl, moffs, mql, np.int32(len(mtpl)), PHMMParams.default(),
-            mW, len(mtpl), seg_ids=np.zeros(len(mqs), np.int32), n_seg=1,
-            finish=False))
+            mW, len(mtpl), np.zeros(len(mqs), np.int32), 1))
 
     def extend():
         cands, reads, chunks, margin = ext

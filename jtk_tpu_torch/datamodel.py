@@ -225,21 +225,6 @@ def ops_query_length(ops) -> int:
     return sum(l for k, l in ops if k in "MI")
 
 
-def ops_ref_length(ops) -> int:
-    return sum(l for k, l in ops if k in "MD")
-
-
-def compress_ops(flat) -> list:
-    """Run-length-encode a flat op-kind sequence ('M','I','D' chars)."""
-    out = []
-    for k in flat:
-        if out and out[-1][0] == k:
-            out[-1][1] += 1
-        else:
-            out.append([k, 1])
-    return [(k, l) for k, l in out]
-
-
 # ---------------------------------------------------------------------------
 # Core records
 # ---------------------------------------------------------------------------

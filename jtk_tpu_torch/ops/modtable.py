@@ -22,13 +22,15 @@ sub/del/copy at template position j and ins-before-position j.
 Copy edits of length >= 2 drop query insertions between the copied columns
 — the reference's deliberate approximation, kept as is.
 
-The two engines run their pair slices (:func:`_slices`) over the device set
+Three entries, one per product (the raw tables, per-segment gain totals,
+variant statistics), share one slice loop (:func:`_pileup_slices`).  It
+runs the pair slices (:func:`_slices`) over the device set
 (:func:`jtk_tpu_torch.runtime.devices`): slice i on entry i mod n, each
 whole, so every launch has the shape it has on one device, and the
 per-slice results are merged on the primary in slice order, as one device
-merges them (``parallel.merge``, nested in the spans that held the merges
-before it).  (``jtk_tpu`` splits the rows inside a slice instead; in the
-port that would change the launches' batch sizes with the device count.)
+merges them (``parallel.merge``).  (``jtk_tpu`` splits the rows inside a
+slice instead; in the port that would change the launches' batch sizes
+with the device count.)
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ DEL_SIZE = 3
 NUM_EDIT = 8 + COPY_SIZE + DEL_SIZE  # 4 sub + 4 ins + copies + dels = 14
 MAXB = 192           # pairs per fused slice at W <= 256
 POS_THR_DEV = 1e-5   # == ops.cluster.POS_THR (variant-support threshold)
-# engine calls by their number of slices (how many could use a device set)
+# slice-loop calls by their number of slices (how many could use a device set)
 SLICE_CALLS: collections.Counter = collections.Counter()
 ASSEMBLY_LAUNCHES = Launches("modtable_assembly")
 trace.register(lambda: {f"modtable.calls_by_slices.{k}": v
@@ -365,47 +367,26 @@ def _slices(n: int, W: int):
     return [slice(s, min(n, s + cap)) for s in range(0, n, cap)]
 
 
-def _slice_inputs(tpl, t_len, strands, sl):
-    tpl_s = tpl if tpl.ndim == 1 else tpl[sl]
-    tl_s = t_len if np.ndim(t_len) == 0 else np.asarray(t_len)[sl]
-    st_s = None if strands is None else np.asarray(strands)[sl]
-    return tpl_s, tl_s, st_s
-
-
 def _host_params(p):
     """PHMMParams as numpy tables (read back once, not in a slice's prep)."""
     return None if p is None else PHMMParams(*(_np(x) for x in p))
 
 
-def _device_slices(n: int, W: int):
-    """The primary and (entry, device, slice) of each pair slice, slice i
-    on entry i mod the device set's size; counts the call in
-    SLICE_CALLS and, while tracing, the slices and pairs."""
-    from ..runtime import devices
-    devs = devices()
-    slices = _slices(n, W)
-    SLICE_CALLS[len(slices)] += 1
-    trace.count("modtable.slices", len(slices))
-    trace.count("modtable.pairs", n)
-    return devs[0], [(i % len(devs), devs[i % len(devs)], sl)
-                     for i, sl in enumerate(slices)]
-
-
-def modification_table_pileup_pallas(qs, tpl, offs, q_lens, t_len, params,
-                                     W: int, Tpad: int, strands=None,
-                                     params_rev=None, seg_ids=None,
-                                     n_seg=None, sparse_k=None,
-                                     min_gain=0.0, finish=True):
-    """Modification tables of a pileup (counterpart of the JAX package's
-    production engine of the same name).
+def _pileup_slices(qs, tpl, offs, q_lens, t_len, params, W: int, Tpad: int,
+                   strands, params_rev, reduce):
+    """The pair slices of a pileup through K1 and K2 on the device set:
+    the one loop of the three entries below.  Slice i runs on entry i mod
+    the set's size; the call counts in SLICE_CALLS and, while tracing, its
+    slices and pairs count too.
 
     ``tpl`` is one template (T,) with scalar ``t_len`` or per-pair templates
-    (B, T) with a (B,) ``t_len``.  Returns (lk numpy (B,), tables numpy
-    (B, Tpad+1, NUM_EDIT)); with ``seg_ids``/``n_seg`` the per-pair gains
-    are summed per segment on the device instead and the second result is
-    the dense totals (numpy), a :class:`SparseGains` (``sparse_k``), or —
-    with ``finish=False`` — the tensor of totals on the primary."""
-    from ..parallel import MERGE, count_merge, on_entry
+    (B, T) with a (B,) ``t_len``.  ``reduce(entry, dev, sl, lk, tab)`` runs
+    on each slice's tables inside that slice's work.  Returns its results
+    in slice order and ``merge_lk()``, which brings the slices' lk to the
+    primary and the host (numpy (B,)); the caller runs it inside its own
+    merge span, beside its results' merge."""
+    from ..parallel import count_merge, on_entry
+    from ..runtime import devices
     # the band is rounded up to a multiple of 128, as in the production
     # engine of the JAX package (the extra lanes only add paths)
     W = ((int(W) + 127) // 128) * 128
@@ -415,40 +396,78 @@ def modification_table_pileup_pallas(qs, tpl, offs, q_lens, t_len, params,
     offs = np.asarray(offs)
     q_lens = np.asarray(q_lens, np.int32)
     params, params_rev = _host_params(params), _host_params(params_rev)
-    reduce = seg_ids is not None
-    lks, tabs, totals = [], [], None
-    primary, parts = _device_slices(qs.shape[0], W)
-    for entry, dev, sl in parts:
-        tpl_s, tl_s, st_s = _slice_inputs(tpl, t_len, strands, sl)
+    devs = devices()
+    slices = _slices(qs.shape[0], W)
+    SLICE_CALLS[len(slices)] += 1
+    trace.count("modtable.slices", len(slices))
+    trace.count("modtable.pairs", qs.shape[0])
+    lks, outs = [], []
+    for i, sl in enumerate(slices):
+        entry, dev = i % len(devs), devs[i % len(devs)]
+        tpl_s = tpl if tpl.ndim == 1 else tpl[sl]
+        tl_s = t_len if np.ndim(t_len) == 0 else np.asarray(t_len)[sl]
+        st_s = None if strands is None else np.asarray(strands)[sl]
         with on_entry(entry, dev):
             lk, tab = _modtable_slice(qs[sl], tpl_s, offs[sl], q_lens[sl],
                                       tl_s, params, W, Tpad, st_s,
                                       params_rev, device=dev)
             lks.append(lk)
-            if reduce:
-                with trace.span("modtable.assembly", device=True):
-                    seg = torch.as_tensor(np.asarray(seg_ids)[sl],
-                                          dtype=torch.int64, device=dev)
-                    tot = _gain_segments(lk, tab, seg, n_seg)
-                    with trace.span(MERGE):
-                        count_merge(entry, tot)
-                        tot = tot.to(primary)
-                        totals = tot if totals is None else totals + tot
-            else:
-                tabs.append(tab)
-    with trace.span(MERGE):
-        for (entry, _dev, _sl), lk in zip(parts, lks):
-            count_merge(entry, lk)
-        for (entry, _dev, _sl), tab in zip(parts, tabs):
-            count_merge(entry, tab)
-        lk_all = torch.cat([lk.to(primary) for lk in lks]).cpu().numpy() \
+            outs.append(reduce(entry, dev, sl, lk, tab))
+
+    def merge_lk():
+        for i, lk in enumerate(lks):
+            count_merge(i % len(devs), lk)
+        return torch.cat([lk.to(devs[0]) for lk in lks]).cpu().numpy() \
             if lks else np.zeros(0, np.float32)
-        tabs = [tab.cpu().numpy() for tab in tabs]
-    if reduce:
-        if not finish:
-            return lk_all, totals
-        return lk_all, finish_gains(totals, n_seg, sparse_k, min_gain)
-    return lk_all, np.concatenate(tabs)
+
+    return outs, merge_lk
+
+
+def modification_table_pileup_pallas(qs, tpl, offs, q_lens, t_len, params,
+                                     W: int, Tpad: int, strands=None,
+                                     params_rev=None):
+    """Modification tables of a pileup (counterpart of the JAX package's
+    production engine of the same name): (lk numpy (B,), tables numpy
+    (B, Tpad+1, NUM_EDIT))."""
+    from ..parallel import MERGE, count_merge
+    tabs, merge_lk = _pileup_slices(
+        qs, tpl, offs, q_lens, t_len, params, W, Tpad, strands, params_rev,
+        lambda entry, _dev, _sl, _lk, tab: (entry, tab))
+    with trace.span(MERGE):
+        for entry, tab in tabs:
+            count_merge(entry, tab)
+        return merge_lk(), np.concatenate([tab.cpu().numpy()
+                                           for _entry, tab in tabs])
+
+
+def modtable_pileup_gains(qs, tpl, offs, q_lens, t_len, params, W: int,
+                          Tpad: int, seg_ids, n_seg: int, strands=None,
+                          params_rev=None):
+    """Per-segment gain totals of a pileup: each slice's per-pair gains
+    (table - lk) summed by ``seg_ids`` on its device and added in slice
+    order on the primary; the tables are not kept.  Returns (lk numpy
+    (B,), float32 totals (n_seg, Tpad+1, NUM_EDIT) on the primary), for
+    :func:`finish_gains`."""
+    from ..parallel import MERGE, count_merge
+    from ..runtime import devices
+    primary = devices()[0]
+    seg_ids = np.asarray(seg_ids)
+    total = None
+
+    def reduce(entry, dev, sl, lk, tab):
+        nonlocal total
+        with trace.span("modtable.assembly", device=True):
+            seg = torch.as_tensor(seg_ids[sl], dtype=torch.int64, device=dev)
+            tot = _gain_segments(lk, tab, seg, n_seg)
+            with trace.span(MERGE):
+                count_merge(entry, tot)
+                tot = tot.to(primary)
+                total = tot if total is None else total + tot
+
+    _outs, merge_lk = _pileup_slices(qs, tpl, offs, q_lens, t_len, params,
+                                     W, Tpad, strands, params_rev, reduce)
+    with trace.span(MERGE):
+        return merge_lk(), total
 
 
 class SparseGains:
@@ -474,10 +493,8 @@ class SparseGains:
 
 @trace.span("modtable.assembly", device=True)
 def finish_gains(tot_dev, n_seg, sparse_k, min_gain):
-    """Materialize accumulated device gain totals: dense (numpy float64),
-    or as SparseGains when ``sparse_k`` is set."""
-    if sparse_k is None:
-        return tot_dev.cpu().numpy().astype(np.float64)[:n_seg]
+    """The top-``sparse_k`` candidates of the device gain totals of
+    :func:`modtable_pileup_gains`, as :class:`SparseGains`."""
     vals, idx, ev, counts = _topk_gain(tot_dev, float(min_gain),
                                        int(sparse_k))
     return SparseGains(vals.cpu().numpy()[:n_seg], idx.cpu().numpy()[:n_seg],
@@ -566,51 +583,41 @@ def modtable_pileup_stats_pallas(qs, tpl, offs, q_lens, t_len, params,
     Returns (lks (B,), stats (n_seg, Tpad+1, NUM_EDIT, 6) float64 on the
     primary, gather(flat_cols) -> (raw (B, U), comp (B, U)))."""
     from ..parallel import MERGE, count_merge, on_entry
-    W = ((int(W) + 127) // 128) * 128
-    tpl = np.asarray(tpl)
-    tpl = tpl[:Tpad] if tpl.ndim == 1 else tpl[:, :Tpad]
-    qs = np.asarray(qs)
-    offs = np.asarray(offs)
-    q_lens = np.asarray(q_lens, np.int32)
+    from ..runtime import devices
+    primary = devices()[0]
     seg_ids = np.asarray(seg_ids, np.int64)
-    params, params_rev = _host_params(params), _host_params(params_rev)
     kept = []   # (entry, tab, lk, seg, exp_mat) per slice, on its device
-    sts = []
     exp_dev = {}
-    primary, parts = _device_slices(qs.shape[0], W)
-    for entry, dev, sl in parts:
-        tpl_s, tl_s, st_s = _slice_inputs(tpl, t_len, strands, sl)
-        with on_entry(entry, dev):
-            lk, tab = _modtable_slice(qs[sl], tpl_s, offs[sl], q_lens[sl],
-                                      tl_s, params, W, Tpad, st_s,
-                                      params_rev, device=dev)
-            if entry not in exp_dev:
-                exp_dev[entry] = torch.as_tensor(
-                    np.asarray(exp_mat, np.float32), device=dev)
-            with trace.span("modtable.assembly", device=True):
-                seg = torch.as_tensor(seg_ids[sl], device=dev)
-                fwd = torch.ones(len(seg), dtype=torch.float32, device=dev)
-                if st_s is not None:
-                    fwd = torch.as_tensor(
-                        np.asarray(st_s, bool).astype(np.float32),
-                        device=dev)
-                sts.append(_segsum_matmul(
-                    _stats_planes(tab, lk, seg, exp_dev[entry], fwd), seg,
-                    n_seg))
-        kept.append((entry, tab, lk, seg, exp_dev[entry]))
+
+    def reduce(entry, dev, sl, lk, tab):
+        if entry not in exp_dev:
+            exp_dev[entry] = torch.as_tensor(
+                np.asarray(exp_mat, np.float32), device=dev)
+        with trace.span("modtable.assembly", device=True):
+            seg = torch.as_tensor(seg_ids[sl], device=dev)
+            fwd = torch.ones(len(seg), dtype=torch.float32, device=dev)
+            if strands is not None:
+                fwd = torch.as_tensor(
+                    np.asarray(strands, bool)[sl].astype(np.float32),
+                    device=dev)
+            kept.append((entry, tab, lk, seg, exp_dev[entry]))
+            return _segsum_matmul(
+                _stats_planes(tab, lk, seg, exp_dev[entry], fwd), seg, n_seg)
+
+    sts, merge_lk = _pileup_slices(qs, tpl, offs, q_lens, t_len, params, W,
+                                   Tpad, strands, params_rev, reduce)
     # the slices' stats summed in float64 on the primary in slice order,
     # as one device sums them; each slice's block is freed once added
     with trace.span("modtable.assembly", device=True), trace.span(MERGE):
-        for (entry, _tab, lk, _seg, _exp), st in zip(kept, sts):
-            count_merge(entry, st, lk)
+        for (entry, *_k), st in zip(kept, sts):
+            count_merge(entry, st)
         stats = None
         for i, st in enumerate(sts):
             sts[i] = None
             st = st.to(primary).to(torch.float64)
             stats = st if stats is None else stats.add_(st)
-        lks = torch.cat([k[2].to(primary) for k in kept]).cpu().numpy()
-    logger.info("modtable stats: %d pairs, %d slices, W=%d", qs.shape[0],
-                len(kept), W)
+        lks = merge_lk()
+    logger.info("modtable stats: %d pairs, %d slices", len(lks), len(kept))
 
     def gather(flat_cols):
         cols = np.asarray(flat_cols, np.int64)

@@ -13,18 +13,11 @@ import numpy as np
 
 from .. import trace
 from .banded_align import linear_offsets
-from .modtable import NUM_EDIT, finish_gains, \
-    modification_table_pileup_pallas
+from .modtable import finish_gains, modtable_pileup_gains
 from .phmm import PHMMParams
 
 
 SPARSE_K = 512  # top-k gain candidates fetched per template (polish_many)
-
-
-def _pad_to(x, n, fill):
-    out = np.full(n, fill, dtype=np.int8)
-    out[: len(x)] = x
-    return out
 
 
 def effective_band(W: int, q_lens, t_len: int) -> int:
@@ -93,48 +86,6 @@ def band_buckets(q_lens, t_lens, W: int):
     if carry is not None:  # unreachable (the last bucket never carries)
         merged.append(carry)
     return merged, dropped
-
-
-def pileup_modification_gains(template: np.ndarray, reads: list[np.ndarray],
-                              params: PHMMParams, W: int, Tpad: int,
-                              strands=None,
-                              params_rev: PHMMParams | None = None):
-    """Sum of per-read modification tables and baseline LKs.
-
-    With ``strands`` (bool per read) and ``params_rev``, reverse-strand reads
-    are scored under the reverse-strand HMM.
-
-    Returns (lks (R,), total_gain (Tpad+1, NUM_EDIT)) where total_gain[j, e]
-    = sum_r [LK_r(edit) - LK_r].
-    """
-    t_len = len(template)
-    tpl = _pad_to(template, Tpad, 4)
-    R = len(reads)
-    q_lens = np.array([len(r) for r in reads], np.int32)
-    lks = np.zeros(R, np.float64)
-    total = np.zeros((Tpad + 1, NUM_EDIT), np.float64)
-    buckets, dropped = band_buckets(q_lens, np.full(R, t_len), W)
-    lks[dropped] = -1e30
-    tot_dev = None
-    for Wb, bidx in buckets:
-        qlb = q_lens[bidx]
-        Qpad = pad_bucket(int(qlb.max()))
-        qs = np.stack([_pad_to(reads[b], Qpad, 4) for b in bidx])
-        offs = np.stack([linear_offsets(int(l), t_len, Qpad, Wb)
-                         for l in qlb])
-        # strand-merged pass; gain totals reduce on the device and
-        # accumulate across band buckets
-        st = None if strands is None or params_rev is None \
-            else np.asarray(strands, bool)[bidx]
-        lk, tot = modification_table_pileup_pallas(
-            qs, tpl, offs, qlb, np.int32(t_len), params, Wb, Tpad,
-            strands=st, params_rev=params_rev,
-            seg_ids=np.zeros(len(bidx), np.int32), n_seg=1, finish=False)
-        lks[bidx] = np.asarray(lk, np.float64)
-        tot_dev = tot if tot_dev is None else tot_dev + tot
-    if tot_dev is not None:
-        total += finish_gains(tot_dev, 1, None, 0.0)[0]
-    return lks, total
 
 
 def choose_edits_sparse(idx, ev, vals, t_len: int, min_gain: float,
@@ -266,10 +217,9 @@ def polish_many(templates: list, pileups: list, params: PHMMParams,
                                    np.int32)
             # per-template gain totals reduce on the device and accumulate
             # across band buckets; the final fetch is the top-k candidates
-            lk, tot = modification_table_pileup_pallas(
-                qs, tpl_mat, offs, qlb, tlb, params, Wb, Tpad,
-                strands=pair_strand[bidx], params_rev=params_rev,
-                seg_ids=seg_ids, n_seg=len(idxs), finish=False)
+            lk, tot = modtable_pileup_gains(
+                qs, tpl_mat, offs, qlb, tlb, params, Wb, Tpad, seg_ids,
+                len(idxs), strands=pair_strand[bidx], params_rev=params_rev)
             for p, b in enumerate(bidx):
                 lks[pair_tpl_idx[b]][pair_read_idx[b]] = float(lk[p])
             tot_dev = tot if tot_dev is None else tot_dev + tot
@@ -301,26 +251,14 @@ def polish_many(templates: list, pileups: list, params: PHMMParams,
 
 def polish_until_converge(template: np.ndarray, reads: list[np.ndarray],
                           params: PHMMParams, W: int = 128,
-                          max_rounds: int = 20, min_gain: float = 0.1,
-                          spacing: int = 8, strands=None,
-                          params_rev: PHMMParams | None = None):
-    """Polish ``template`` against ``reads`` until no improving edit remains.
+                          max_rounds: int = 20):
+    """Polish ``template`` against ``reads`` until no improving edit remains:
+    :func:`polish_many` of the one template.
 
     Returns (polished_template, final_lks).
     """
     if not reads:
         return template, np.zeros(0)
-    tpl = np.asarray(template, np.int8)
-    Tpad = pad_bucket(len(tpl) + 128, step=128)  # headroom for insertions
-    lks = None
-    for _ in range(max_rounds):
-        if len(tpl) + 8 > Tpad:
-            Tpad = pad_bucket(len(tpl) + 128, step=128)
-        lks, total = pileup_modification_gains(tpl, reads, params, W, Tpad,
-                                               strands=strands,
-                                               params_rev=params_rev)
-        edits = choose_edits(total, len(tpl), min_gain, spacing)
-        if not edits:
-            break
-        tpl = apply_edits(tpl, edits)
-    return tpl, lks
+    tpls, lks = polish_many([template], [reads], params, W=W,
+                            max_rounds=max_rounds)
+    return tpls[0], lks[0]

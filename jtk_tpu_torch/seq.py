@@ -65,23 +65,3 @@ def revcomp(codes: np.ndarray) -> np.ndarray:
 
 def revcomp_ascii(seq: bytes) -> bytes:
     return decode(revcomp(encode(seq)))
-
-
-def pad_to(codes: np.ndarray, length: int, fill: int = 4) -> np.ndarray:
-    """Pad (or truncate) a 1-D code array to ``length`` with ``fill``."""
-    out = np.full(length, fill, dtype=np.int8)
-    n = min(len(codes), length)
-    out[:n] = codes[:n]
-    return out
-
-
-def stack_padded(seqs: list[np.ndarray], length: int | None = None, fill: int = 4):
-    """Stack variable-length code arrays into (N, L) + length vector."""
-    lens = np.array([len(s) for s in seqs], dtype=np.int32)
-    if length is None:
-        length = int(lens.max()) if len(seqs) else 0
-    out = np.full((len(seqs), length), fill, dtype=np.int8)
-    for i, s in enumerate(seqs):
-        n = min(len(s), length)
-        out[i, :n] = s[:n]
-    return out, lens

@@ -61,32 +61,6 @@ def gather_pileups(ds: DataSet):
     return pileups
 
 
-def _refresh_cigars(reads, template, W, max_batch=256):
-    """Banded global alignment of each pileup read against the (polished)
-    template; returns new cigars."""
-    from ..ops.banded_align import align_with_cigar_batch
-    from ..ops.polish import effective_band
-    t_len = len(template)
-    q_lens = np.array([len(r) for r in reads], np.int32)
-    W = effective_band(W, q_lens, t_len)
-    Qpad = ((int(q_lens.max()) + 63) // 64) * 64
-    qs = np.full((len(reads), Qpad), 4, np.int8)
-    for i, r in enumerate(reads):
-        qs[i, :len(r)] = r
-    tpl = np.asarray(template, np.int8)
-    rs = np.tile(tpl, (len(reads), 1))
-    offs = np.stack([linear_offsets(int(l), t_len, Qpad, W) for l in q_lens])
-    cigars = []
-    for s in range(0, len(reads), max_batch):
-        e = min(len(reads), s + max_batch)
-        res = align_with_cigar_batch(qs[s:e], rs[s:e], offs[s:e],
-                                     q_lens[s:e], np.full(e - s, t_len,
-                                                          np.int32),
-                                     W, "global")
-        cigars.extend(res["cigar"])
-    return cigars
-
-
 def _pileup_tables(reads, strands, template, params_f, params_r, W, Tpad):
     """Per-read modification tables with strand-specific HMMs.
     Returns (lks (R,), profiles (R, (Tpad+1)*NUM_EDIT))."""

@@ -292,12 +292,11 @@ def _modtables(n_dev, dev="cpu"):
     exp_mat = np.full((3, L + 1, pmod.NUM_EDIT), 0.5, np.float32)
     with _on(n_dev, dev):
         lk, tab = pmod.modification_table_pileup_pallas(*args, **kw)
-        lk2, tot = pmod.modification_table_pileup_pallas(
-            *args, seg_ids=seg, n_seg=3, **kw)
-        lk3, tot_dev = pmod.modification_table_pileup_pallas(
-            *args, seg_ids=seg, n_seg=3, finish=False, **kw)
-        _lk, sparse = pmod.modification_table_pileup_pallas(
-            *args, seg_ids=seg, n_seg=3, sparse_k=8, **kw)
+        lk2, tot = pmod.modtable_pileup_gains(*args, seg, 3, **kw)
+        tot = tot.cpu().numpy()
+        lk3, tot_dev = pmod.modtable_pileup_gains(*args, seg, 3, **kw)
+        _lk, tot_k = pmod.modtable_pileup_gains(*args, seg, 3, **kw)
+        sparse = pmod.finish_gains(tot_k, 3, 8, 0.0)
         lks, stats, gather = pmod.modtable_pileup_stats_pallas(
             qs, template, offs, q_lens, np.int32(L), pf, W, L, strands, pr,
             seg, 3, exp_mat)

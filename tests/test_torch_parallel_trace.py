@@ -53,8 +53,8 @@ def _engines(n_dev):
     exp_mat = np.full((3, L + 1, pmod.NUM_EDIT), 0.5, np.float32)
     with runtime.use_devices(["cpu"] * n_dev):
         lk, tab = pmod.modification_table_pileup_pallas(*args, **kw)
-        lk2, tot = pmod.modification_table_pileup_pallas(
-            *args, seg_ids=seg, n_seg=3, **kw)
+        lk2, tot = pmod.modtable_pileup_gains(*args, seg, 3, **kw)
+        tot = tot.cpu().numpy()
         lks, stats, gather = pmod.modtable_pileup_stats_pallas(
             qs, template, offs, q_lens, np.int32(L), pf, W, L, strands, pr,
             seg, 3, exp_mat)

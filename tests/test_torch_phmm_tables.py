@@ -141,17 +141,17 @@ def test_modtable_reduced_totals_and_sparse_gains():
     seg = np.array([0, 0, 0, 1, 1, 2, 2, 2, 2], np.int32)
     lk0, tab0 = pmod.modification_table_pileup_pallas(
         qs, tpl, offs, q_lens, np.int32(tlen), pp, W, tlen)
-    lk1, tot = pmod.modification_table_pileup_pallas(
-        qs, tpl, offs, q_lens, np.int32(tlen), pp, W, tlen, seg_ids=seg,
-        n_seg=3)
+    lk1, tot = pmod.modtable_pileup_gains(
+        qs, tpl, offs, q_lens, np.int32(tlen), pp, W, tlen, seg, 3)
+    tot = tot.cpu().numpy()
     np.testing.assert_allclose(lk1, lk0, rtol=1e-6)
     gain = np.where(tab0 < -1e29, np.float32(-1e30), tab0 - lk0[:, None, None])
     want = np.stack([gain[seg == s].sum(0) for s in range(3)])
     np.testing.assert_allclose(tot, want, rtol=2e-4, atol=0.5)
     min_gain = 0.1
-    _lk, sp = pmod.modification_table_pileup_pallas(
-        qs, tpl, offs, q_lens, np.int32(tlen), pp, W, tlen, seg_ids=seg,
-        n_seg=3, sparse_k=16, min_gain=min_gain)
+    _lk, tot_dev = pmod.modtable_pileup_gains(
+        qs, tpl, offs, q_lens, np.int32(tlen), pp, W, tlen, seg, 3)
+    sp = pmod.finish_gains(tot_dev, 3, 16, min_gain)
     best_g = tot.max(-1)
     best_e = tot.argmax(-1)
     for s in range(3):

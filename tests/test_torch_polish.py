@@ -2,6 +2,7 @@
 inputs: the same polished templates."""
 
 import numpy as np
+import pytest
 
 from jtk_tpu.datamodel import HMMParam
 from jtk_tpu.io import sim
@@ -48,6 +49,32 @@ def test_polish_many_matches_jax():
     for t, p, m in zip(tpls, pileups, got):
         single, _ = ppol.polish_until_converge(t, p, pp, W=64, max_rounds=8)
         np.testing.assert_array_equal(single, m)
+
+
+@pytest.mark.parametrize("far", [0, 5])
+def test_polish_until_converge_drops_a_far_read(far):
+    """A read whose deficit is past 8W (at W 16: 121 bases) is dropped
+    from every round, wherever it sits in the pileup: its lk is -1e30 and
+    the template is the JAX package's and polish_many's."""
+    rng = np.random.default_rng(9)
+    jp, pp = _params()
+    true = sim.random_genome(rng, 180)
+    draft = sim.noisy_read(rng, true, 0.03)
+    reads = [sim.noisy_read(rng, true, 0.06) for _ in range(8)]
+    reads.insert(far, true[60:100].copy())
+    want, want_lks = jpol.polish_until_converge(draft, reads, jp, W=16,
+                                                max_rounds=4)
+    got, got_lks = ppol.polish_until_converge(draft, reads, pp, W=16,
+                                              max_rounds=4)
+    np.testing.assert_array_equal(got, want)
+    assert not np.array_equal(got, draft)
+    assert got_lks[far] == want_lks[far] == -1e30
+    assert (np.delete(got_lks, far) > -1e29).all()
+    np.testing.assert_allclose(got_lks, want_lks, rtol=1e-4, atol=2e-2)
+    (many,), (many_lks,) = ppol.polish_many([draft], [reads], pp, W=16,
+                                            max_rounds=4)
+    np.testing.assert_array_equal(got, many)
+    np.testing.assert_array_equal(got_lks, many_lks)
 
 
 def test_band_buckets_and_edits_are_the_jax_package_s():
