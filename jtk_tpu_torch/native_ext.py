@@ -198,3 +198,36 @@ def cigar_expand_native(bits, del_vals, del_idx, q_lens, lead_d):
             return kinds[:n], lens[:n], row_off
         cap = -n
     return None
+
+
+def band_offsets_native(q_lens, t_lens, Q: int, W: int):
+    """Band starts of global alignments, one (B, Q + 1) int32 row a pair:
+    ``ops.banded_align.linear_offsets`` of every pair in one call.  Raises
+    its AssertionError for a band too narrow (before any row is written),
+    IndexError for a q_len outside 0..Q; None when the native library is
+    unavailable."""
+    lib = load("band_offsets")
+    if lib is None:
+        return None
+    fn = lib.band_offsets
+    if not getattr(fn, "_configured", False):
+        fn.restype = ctypes.c_int64
+        fn.argtypes = [_I32P, _I32P, ctypes.c_int64, ctypes.c_int32,
+                       ctypes.c_int32, _I32P]
+        fn._configured = True
+    q_lens = np.ascontiguousarray(q_lens, np.int32)
+    t_lens = np.ascontiguousarray(t_lens, np.int32)
+    B = len(q_lens)
+    if t_lens.shape != (B,) or q_lens.ndim != 1:
+        raise ValueError(f"q_lens {q_lens.shape} and t_lens {t_lens.shape} "
+                         "are not one length a pair")
+    out = np.empty((B, Q + 1), np.int32)
+    n = fn(q_lens, t_lens, np.int64(B), np.int32(Q), np.int32(W), out)
+    if -B <= n < 0:
+        b = -n - 1
+        raise AssertionError(f"band W={W} too narrow for global "
+                             f"q={q_lens[b]} t={t_lens[b]}")
+    if n < 0:
+        b = -n - B - 1
+        raise IndexError(f"q_len {q_lens[b]} outside 0..{Q}")
+    return out

@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import native_ext, trace
 from ..runtime import resolve
 from .edit_dp import DEL_TOPK, edit_dp, k3_batch, k3_inputs, pack_results, \
     select_end, to_host
@@ -22,7 +23,8 @@ INF = np.int32(2 ** 30)
 DIAG, UP, LEFT = np.uint8(0), np.uint8(1), np.uint8(2)
 _KM = {1: "M", 2: "I", 3: "D"}
 
-__all__ = ["DEL_TOPK", "linear_offsets", "diagonal_offsets", "pack2bit",
+__all__ = ["DEL_TOPK", "linear_offsets", "linear_offsets_block",
+           "diagonal_offsets", "pack2bit",
            "decode_indexed", "align_with_cigar_batch", "dispatch_align_cigar",
            "collect_align_cigar", "banded_align_batch", "traceback_batch",
            "ops_rle", "edit_align"]
@@ -52,6 +54,21 @@ def linear_offsets(q_len: int, t_len: int, Q: int, W: int) -> np.ndarray:
     off[q_len:] = off[q_len]
     assert off[q_len] <= t_len <= off[q_len] + W - 1
     return off.astype(np.int32)
+
+
+def linear_offsets_block(q_lens, t_lens, Q: int, W: int) -> np.ndarray:
+    """:func:`linear_offsets` of every pair as one (B, Q + 1) int32 block:
+    one call of the native ``band_offsets`` library, or where it is not
+    built its twin, :func:`linear_offsets` row by row.  The rows of each
+    are counted (``band_offsets.native_rows``, ``band_offsets.twin_rows``)."""
+    out = native_ext.band_offsets_native(q_lens, t_lens, Q, W)
+    if out is not None:
+        trace.count("band_offsets.native_rows", len(out))
+        return out
+    out = np.stack([linear_offsets(int(q), int(t), Q, W)
+                    for q, t in zip(q_lens, t_lens)])
+    trace.count("band_offsets.twin_rows", len(out))
+    return out
 
 
 def diagonal_offsets(q_len: int, diag: int, t_len: int, Q: int, W: int) -> np.ndarray:

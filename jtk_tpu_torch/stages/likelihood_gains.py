@@ -20,6 +20,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from .. import trace
 from ..datamodel import ErrorRate
 from ..ops.banded_align import linear_offsets
 from ..ops.phmm import PHMMParams, hmm_generate, likelihood_pairs
@@ -39,7 +40,8 @@ class Gains:
     expected_h: dict
     null_prob_h: dict
     thr: float = 0.5
-    _pcache: dict = field(default_factory=dict)
+    # read count -> pvalue_grid's array
+    _grids: dict = field(default_factory=dict)
 
     def expected(self, homop_len: int, difftype: str) -> float:
         i = int(np.clip(homop_len, 1, MAX_HOMOP)) - 1
@@ -53,16 +55,28 @@ class Gains:
         i = int(np.clip(homop_len, 1, MAX_HOMOP)) - 1
         return float(self.null_prob_h[difftype][i])
 
-    def pvalue(self, difftype: str, count: int, total: int,
-               homop_len: int = 1) -> float:
-        """Binomial tail P(X >= count | total, null_prob)."""
-        p = max(self.null_of(difftype, homop_len), 1e-4)
-        key = (round(p, 6), total)
-        tab = self._pcache.get(key)
-        if tab is None:
-            tab = _binom_tail(p, total)
-            self._pcache[key] = tab
-        return float(tab[min(max(count, 0), total)])
+    def pvalue_grid(self, total: int) -> np.ndarray:
+        """Binomial tails P(X >= count | total, null_prob) at count 0..total
+        for every difference type and homopolymer length: a float64
+        (len(DIFF_TYPES) * MAX_HOMOP, total + 1) array whose row
+        ``DIFF_TYPES.index(difftype) * MAX_HOMOP + homop_len - 1`` is the
+        tail at that null probability (floored at 1e-4; probabilities equal
+        to 6 decimals share the first one's tail).  One a read count,
+        cached (counter ``gains.pvalue_grids``)."""
+        grid = self._grids.get(total)
+        if grid is None:
+            tails: dict = {}
+            rows = []
+            for dt in DIFF_TYPES:
+                for L in range(1, MAX_HOMOP + 1):
+                    p = max(self.null_of(dt, L), 1e-4)
+                    key = round(p, 6)
+                    if key not in tails:
+                        tails[key] = _binom_tail(p, total)
+                    rows.append(tails[key])
+            grid = self._grids[total] = np.stack(rows)
+            trace.count("gains.pvalue_grids")
+        return grid
 
 
 def _gammaln(x):

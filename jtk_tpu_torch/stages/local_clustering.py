@@ -28,7 +28,7 @@ from ..ops.cluster import POS_THR, mcmc_cluster_batch, poisson_size_table, used_
 from ..ops.modtable import NUM_EDIT
 from ..ops.phmm import PHMMParams
 from ..ops.polish import polish_until_converge
-from .likelihood_gains import Gains, estimate_gains
+from .likelihood_gains import DIFF_TYPES, MAX_HOMOP, Gains, estimate_gains
 from .util import homopolymer_length, logsumexp, update_coverage
 
 logger = logging.getLogger(__name__)
@@ -49,6 +49,11 @@ def _difftype_of_edit(e: int) -> str:
     if e < 8 + COPY_SIZE:
         return "ins"
     return "del"
+
+
+# each edit's difference type, as Gains.pvalue_grid's block of rows
+_EDIT_DIFF = np.array([DIFF_TYPES.index(_difftype_of_edit(e))
+                       for e in range(NUM_EDIT)])
 
 
 def gather_pileups(ds: DataSet):
@@ -109,12 +114,10 @@ def variant_exp_mat(template: np.ndarray, gains: Gains, Trows: int):
     hp = np.zeros(Trows, np.int32)
     hp[:len(template)] = homop
     hp_idx = np.clip(hp, 1, 3)
-    exp_mat = np.zeros((Trows, NUM_EDIT), np.float32)
-    for e in range(NUM_EDIT):
-        dt = _difftype_of_edit(e)
-        for L in (1, 2, 3):
-            exp_mat[hp_idx == L, e] = gains.expected(L, dt)
-    return exp_mat, hp, hp_idx
+    by_len = np.array([[gains.expected(L, _difftype_of_edit(e))
+                        for e in range(NUM_EDIT)] for L in (1, 2, 3)],
+                      np.float32)
+    return by_len[hp_idx - 1], hp, hp_idx
 
 
 def _variant_candidates(template: np.ndarray, R: int, counts, tot_gain, obs,
@@ -146,45 +149,41 @@ def _variant_candidates(template: np.ndarray, R: int, counts, tot_gain, obs,
         pos_mask[:, 4 + b] &= (prev_run <= MAX_HOMOP_LENGTH + 1) & \
                               (nxt_run <= MAX_HOMOP_LENGTH + 1)
 
-    # binomial-tail p-values per (difftype, homopolymer length)
-    pval_tab = {}
-    for dt in ("sub", "del", "ins"):
-        for L in (1, 2, 3):
-            pval_tab[(dt, L)] = np.array(
-                [gains.pvalue(dt, c, R, homop_len=L) for c in range(R + 1)])
-    pvals = np.ones_like(tot_gain)
-    for e in range(NUM_EDIT):
-        dt = _difftype_of_edit(e)
-        cc = np.clip(counts[:, e].astype(np.int64), 0, R)
-        for L in (1, 2, 3):
-            m = hp_idx == L
-            pvals[m, e] = pval_tab[(dt, L)][cc[m]]
+    # binomial-tail p-values per (difftype, homopolymer length, count)
+    pvals = gains.pvalue_grid(R)[
+        _EDIT_DIFF * MAX_HOMOP + (hp_idx[:, None] - 1),
+        np.clip(counts.astype(np.int64), 0, R)]
+    pvals = pvals.astype(tot_gain.dtype, copy=False)
     exp_col = exp_mat * EXPT_GAIN_FACTOR
     keep = pos_mask & (counts * exp_col < tot_gain) & \
         (pvals < PVALUE / max(t_len, 1))
 
-    # strand-bias chi^2 (pseudo_mcmc.rs:314-339), vectorized over columns
+    # strand-bias chi^2 (pseudo_mcmc.rs:314-339), vectorized over the
+    # columns the tests above kept
     if both_strands:
-        nz_tot = obs.sum(axis=(-2, -1))                  # (Trows, NUM_EDIT)
-        strand_count = obs.sum(-1)                       # (.., 2)
-        sign_count = obs.sum(-2)
+        rows, cols = np.nonzero(keep)
+        o = obs[rows, cols]                              # (n, 2, 2)
+        nz_tot = o.sum(axis=(-2, -1))
+        strand_count = o.sum(-1)                         # (n, 2)
+        sign_count = o.sum(-2)
         with np.errstate(divide="ignore", invalid="ignore"):
             expd = strand_count[..., :, None] * sign_count[..., None, :] \
                 / np.maximum(nz_tot, 1e-9)[..., None, None]
-            chi = np.where(expd > 0, (obs - expd) ** 2 / expd, 0.0) \
+            chi = np.where(expd > 0, (o - expd) ** 2 / expd, 0.0) \
                 .sum(axis=(-2, -1))
-        keep &= (nz_tot > 0) & (chi < 10.0)
+        keep[rows, cols] = (nz_tot > 0) & (chi < 10.0)
 
     cand = np.nonzero(keep.reshape(-1))[0]
     if len(cand) == 0:
         return cand, np.zeros(0)
-    # score candidates: max-Poisson count LK + total gain (filter_profiles)
+    # score candidates: max-Poisson count LK + total gain (filter_profiles),
+    # the LK once a distinct count
     from .util import max_poisson_lk
-    cflat = counts.reshape(-1)
-    gflat = tot_gain.reshape(-1)
-    scores = np.array([max_poisson_lk(int(cflat[ci]), coverage, 1,
-                                      max(copy_num, 1)) + gflat[ci]
-                       for ci in cand])
+    n_pos = [int(c) for c in counts.reshape(-1)[cand]]
+    count_lk = {c: max_poisson_lk(c, coverage, 1, max(copy_num, 1))
+                for c in set(n_pos)}
+    scores = np.array([count_lk[c] + g
+                       for c, g in zip(n_pos, tot_gain.reshape(-1)[cand])])
     ok = scores > 0
     return cand[ok], scores[ok]
 
@@ -481,7 +480,7 @@ def _variant_features_device(per_chunk, params_f, params_r, band, Tpad,
     group's gather completes (freeing its tables) before the next group's
     stats run."""
     from ..ops.modtable import modtable_pileup_stats_pallas
-    from ..ops.banded_align import linear_offsets
+    from ..ops.banded_align import linear_offsets_block
     # ~1.5 GB of resident f32 tables per group
     group_pairs = max(1536, int(1.5e9) // ((int(Tpad) + 1) * NUM_EDIT * 4))
     total_pairs = sum(len(v[0]) for v in per_chunk.values())
@@ -538,8 +537,7 @@ def _variant_features_device(per_chunk, params_f, params_r, band, Tpad,
             for p, b in enumerate(bidx):
                 qs[p, :len(pair_reads[b])] = pair_reads[b]
                 tpl_mat[p, :len(pair_tpl[b])] = pair_tpl[b]
-            offs = np.stack([linear_offsets(int(ql), int(tl), Qpad, Wb)
-                             for ql, tl in zip(qlb, tlb)])
+            offs = linear_offsets_block(qlb, tlb, Qpad, Wb)
         _lks, st, g = modtable_pileup_stats_pallas(
             qs, tpl_mat, offs, qlb, tlb, params_f, Wb, Tpad,
             pair_strand[bidx], params_r, seg_ids[bidx],

@@ -27,16 +27,11 @@ def update_coverage(ds) -> float:
 def homopolymer_length(seq: np.ndarray) -> np.ndarray:
     """Per-position run length of the homopolymer containing it
     (pseudo_mcmc.rs:196-211)."""
-    n = len(seq)
-    out = np.zeros(n, dtype=np.int32)
-    i = 0
-    while i < n:
-        j = i
-        while j < n and seq[j] == seq[i]:
-            j += 1
-        out[i:j] = j - i
-        i = j
-    return out
+    seq = np.asarray(seq)
+    starts = np.ones(len(seq), bool)
+    np.not_equal(seq[1:], seq[:-1], out=starts[1:])
+    runs = np.diff(np.flatnonzero(starts), append=len(seq))
+    return np.repeat(runs, runs).astype(np.int32)
 
 
 def adjusted_rand_index(a, b) -> float:

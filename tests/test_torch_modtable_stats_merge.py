@@ -149,3 +149,23 @@ def test_the_counter_counts_one_copy_a_call_and_its_reader_reads_it():
         trace.reset()
     _features(per_chunk)
     assert "modtable.stats_host_bytes" not in trace.snapshot()["counters"]
+
+
+def test_the_features_count_their_offsets_rows_and_pvalue_grids():
+    """A traced features call builds every pair's band offsets in one
+    block a band bucket, the native rows and the twin's together one a
+    pair, and at most one p-value grid a distinct read count."""
+    per_chunk = _per_chunk()
+    n_pairs = sum(len(reads) for reads, _s, _t in per_chunk.values())
+    trace.reset()
+    trace.enable()
+    try:
+        _features(per_chunk)
+        counters = trace.snapshot()["counters"]
+    finally:
+        trace.disable()
+        trace.reset()
+    assert counters.get("band_offsets.native_rows", 0) \
+        + counters.get("band_offsets.twin_rows", 0) == n_pairs
+    n_reads = {len(reads) for reads, _s, _t in per_chunk.values()}
+    assert 1 <= counters["gains.pvalue_grids"] <= len(n_reads)
